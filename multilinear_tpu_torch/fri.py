@@ -1,0 +1,320 @@
+"""FRI low-degree test: device fold + Merkle commit, host queries.
+
+Protocol parity with reference src/fri/mod.rs: pair leaves
+(value = p(g^i), minus_value = p(-g^i) = p(g^{i+n/2})), the fold
+next(x^2) = ((p(x)+p(-x)) + r*(p(x)-p(-x))*g^{-i*2^k}) / 2, one Merkle root
+absorbed per layer, 128 transcript-drawn query indices with 8-LE-byte
+absorption (quirk Q5), and the redundant ``last_random`` transcript
+fingerprint checked at the end.
+
+Every fold step is one launch of the fused ``fold_commit_leaves`` kernel
+(fold + leaf hashes) followed by one ``sha256_words`` launch per tree level.
+The codeword stays on the device down to its last two elements: the kernels
+mask their own ragged edge, so there is no host tail.  Queries gather all
+128 openings of all layers in one device->host copy.
+
+Still to port here: the JAX package's standalone fold kernel
+(``fold_codeword``); every fold of this module goes through the fused
+kernel.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional, Sequence
+
+import torch
+
+from . import stats
+from .config import LOG_BLOWUP, NUM_QUERIES
+from .field import cuda_ops, limbs, ops
+from .field.scalar import Fp, P, TWO_INV, pow2_generator
+from .merkle import MerklePath, MerkleTree, tree_levels
+from .mle import bit_reverse, to_coeffs
+from .ntt import inv_gen_pows, reed_solomon
+from .transcript import Transcript
+
+
+class FriError(Exception):
+    pass
+
+
+def _rh_scalar(r: Fp) -> int:
+    """r * 2^{-1} as a canonical integer: ONE host multiply.
+
+    The fold ((a+b) + r*(a-b)*tw) / 2 is computed as
+    half(a+b) + (a-b)*tw*(r/2): the division by two becomes a multiply-free
+    shift-add and the r and 1/2 scalars collapse into one factor.
+    """
+    return (Fp(r) * TWO_INV).v
+
+
+def _fold_and_commit(code: torch.Tensor, inv_pows: torch.Tensor, k: int, r: Fp):
+    """Fold ``code`` (m, 4) with challenge r at FRI round k and hash every
+    Merkle level of the result.  Returns (folded (m/2, 4), layers) with the
+    leaf-digest level first; the pair leaves are (nxt[i], nxt[i + m/4])."""
+    nxt, leaf = cuda_ops.fold_commit_leaves(code, inv_pows, 1 << k, _rh_scalar(r))
+    return nxt, [leaf] + tree_levels(leaf)
+
+
+def _pair_view(code: torch.Tensor) -> torch.Tensor:
+    """(m, 4) codeword -> (2, m/2, 4) pair-leaf payload, zero copy: leaf i
+    holds code[i] and code[i + m/2] (reference commit_rs_code,
+    src/fri/mod.rs:46-56)."""
+    return code.view(2, code.shape[0] // 2, 4)
+
+
+class FriProverData:
+    """Prover state: the current codeword and one Merkle tree per fold layer."""
+
+    def __init__(self):
+        self.trees: List[MerkleTree] = []
+        self.last_element: Optional[Fp] = None
+        self._log_domain: int = 0
+        self._current: Optional[torch.Tensor] = None  # (m, 4) on the device
+        self.debug_checks = False
+
+    @staticmethod
+    def init(code: torch.Tensor, transcript: Optional[Transcript], debug_checks: bool = False) -> "FriProverData":
+        """Commit to the initial codeword; absorb the root when a transcript
+        is given (a caller that batches its device->host copies passes None
+        and absorbs ``trees[0]``'s root itself)."""
+        n = code.shape[0]
+        if n < 4 or n & (n - 1):
+            raise ValueError("codeword length must be a power of two >= 4")
+        data = FriProverData()
+        data.debug_checks = debug_checks
+        data._log_domain = n.bit_length() - 1
+        data._current = code
+        data._guard(code, "codeword")
+        tree = MerkleTree.commit(_pair_view(code))
+        data.trees.append(tree)
+        if transcript is not None:
+            transcript.absorb(tree.root_bytes())
+        return data
+
+    def _guard(self, t: torch.Tensor, what: str) -> None:
+        if self.debug_checks and not ops.is_canonical(t):
+            raise FriError(f"non-canonical field element in {what}")
+
+    def fold_step(self, k: int, r: Fp, transcript: Optional[Transcript]) -> None:
+        """Fold the current codeword with challenge r; commit or finish.
+
+        Reference fold_step (src/fri/mod.rs:79-134); the tail-indexed
+        inverse twiddle gen_pows[len - i*2^k] equals inv_gen^(i*2^k), read
+        by the kernel as ``inv_pows[i << k]``.
+
+        The last fold leaves ``2^LOG_BLOWUP`` equal elements: it commits
+        nothing, sets ``last_element`` and absorbs it.  Any other fold
+        appends a tree and absorbs its root if a transcript is given.
+        """
+        code = self._current
+        m = code.shape[0]
+        blowup = 1 << LOG_BLOWUP
+        if m <= blowup:
+            return
+        inv_pows = inv_gen_pows(self._log_domain, code.device)
+        nxt, layers = _fold_and_commit(code, inv_pows, k, r)
+        self._guard(nxt, "folded codeword")
+        self._current = nxt
+        if m // 2 == blowup:
+            vals = limbs.unpack_ints(stats.fetch(nxt))
+            first = Fp(int(vals[0]))
+            if not all(int(v) == first.v for v in vals):
+                raise FriError("not an RS code")
+            self.last_element = first
+            if transcript is not None:
+                transcript.absorb(first.to_bytes())
+            return
+        tree = MerkleTree(layers, _pair_view(nxt))
+        self.trees.append(tree)
+        if transcript is not None:
+            transcript.absorb(tree.root_bytes())
+
+    @staticmethod
+    def fold(code: torch.Tensor, transcript: Transcript) -> "FriProverData":
+        """init + all fold rounds, drawing one challenge per round
+        (reference src/fri/mod.rs:136-145)."""
+        data = FriProverData.init(code, transcript)
+        for k in range(data._log_domain - LOG_BLOWUP):
+            data.fold_step(k, transcript.next_challenge(), transcript)
+        assert data.last_element is not None
+        return data
+
+    def fold_roots(self) -> List[bytes]:
+        """Every layer's root; roots not fetched yet come in one copy."""
+        pending = [t for t in self.trees if not t.has_root_bytes]
+        if pending:
+            words = stats.fetch(torch.stack([t.root_words for t in pending]))
+            for t, w in zip(pending, words):
+                t.set_root_words(w)
+        return [t.root_bytes() for t in self.trees]
+
+    def open_queries(self, indices: Sequence[int]) -> List["QueryProof"]:
+        """Open many query indices at once: the gathers of all layers come
+        back in ONE device->host copy.
+
+        Per-query index halves each layer (reference open_query_at,
+        src/fri/mod.rs:154-174: current_index %= current_n after halving).
+        """
+        idx_per_tree = []
+        cur = list(indices)
+        cur_n = self.trees[0].num_leaves
+        for _ in self.trees:
+            idx_per_tree.append(cur)
+            cur_n //= 2
+            cur = [c % max(cur_n, 1) for c in cur]
+        paths = MerkleTree.open_batch_many(self.trees, idx_per_tree)
+        return [
+            QueryProof([paths[l][q] for l in range(len(self.trees))])
+            for q in range(len(indices))
+        ]
+
+
+def _layer_inv_gens(gen: Fp, n_layers: int) -> List[Fp]:
+    """[gen^(-2^i) for i in range(n_layers)]: ONE inversion, then squarings."""
+    inv = gen.inv()
+    out = [inv]
+    for _ in range(n_layers - 1):
+        inv = inv * inv
+        out.append(inv)
+    return out
+
+
+@dataclass
+class QueryProof:
+    """One Merkle pair-path per fold layer (reference QueryProof)."""
+
+    paths: List[MerklePath]
+
+    def verify(
+        self,
+        commitments: Sequence[bytes],
+        last_element: Fp,
+        n: int,
+        index: int,
+        gen: Fp,
+        random_elements: Sequence[Fp],
+        inv_gens: Sequence[Fp] = None,
+    ) -> None:
+        """Walk the layers recomputing the fold (reference src/fri/mod.rs:183-237).
+
+        ``n`` is the pair count of layer 0 (codeword/2); ``gen`` the full-
+        domain generator.  Raises FriError on mismatch.
+
+        ``inv_gens``: optional per-layer INVERSE generators (inv_gens[i] =
+        gen^(-2^i)), shared across the queries by ``verify_queries``.  The
+        reference divides by 2*gen^index per layer; with the inverse
+        generator the identical value is TWO_INV * inv_gen_i^index, needing
+        one inversion per proof.
+        """
+        if len(self.paths) != len(commitments):
+            raise FriError("wrong number of paths")
+        if inv_gens is None:
+            inv_gens = _layer_inv_gens(gen, len(commitments))
+        # raw canonical ints mod p: exact Python arithmetic, no wrapper churn
+        two_inv = TWO_INV.v
+        inv_gens_v = [g.v for g in inv_gens]
+        randoms_v = [r.v for r in random_elements]
+        last_v = last_element.v
+        current_n = n
+        current_index = index
+        for i, (path, root) in enumerate(zip(self.paths, commitments)):
+            if len(path.values) != 2:
+                raise FriError(f"layer {i} leaf is not a pair")
+            if not path.verify(root, current_index):
+                raise FriError(f"inclusion path failed at layer {i}")
+            value, minus_value = path.values[0].v, path.values[1].v
+            even = (value + minus_value) * two_inv % P
+            odd = (value - minus_value) * two_inv * pow(inv_gens_v[i], current_index, P) % P
+            folded = (even + randoms_v[i] * odd) % P
+            if i == len(self.paths) - 1:
+                if last_v != folded:
+                    raise FriError(f"query mismatch at last layer {i}")
+                break
+            next_index = current_index % (current_n // 2)
+            next_path = self.paths[i + 1]
+            if len(next_path.values) != 2:
+                raise FriError(f"layer {i + 1} leaf is not a pair")
+            next_value = (
+                next_path.values[0].v if next_index == current_index else next_path.values[1].v
+            )
+            if next_value != folded:
+                raise FriError(f"query mismatch at layer {i}")
+            current_n //= 2
+            current_index = next_index
+
+
+def draw_query_indices(transcript: Transcript, n_pairs: int, count: int) -> List[int]:
+    """Draw ``count`` query indices below ``n_pairs``, absorbing each as it
+    is drawn (reference src/fri/mod.rs:269-273)."""
+    indices = []
+    for _ in range(count):
+        idx = transcript.random_index(n_pairs)
+        transcript.absorb_index(idx)
+        indices.append(idx)
+    return indices
+
+
+@dataclass
+class FriProof:
+    """commitments + queries + final constant + transcript fingerprint
+    (reference FriProof, src/fri/mod.rs:240-248)."""
+
+    commitments: List[bytes]
+    queries: List[QueryProof]
+    last_elem: Fp
+    last_random: bytes
+
+    @staticmethod
+    def prove(code: torch.Tensor, transcript: Transcript) -> "FriProof":
+        """Fold + 128 transcript-drawn queries (reference src/fri/mod.rs:261-285)."""
+        data = FriProverData.fold(code, transcript)
+        indices = draw_query_indices(transcript, code.shape[0] // 2, NUM_QUERIES)
+        queries = data.open_queries(indices)
+        return FriProof(
+            commitments=data.fold_roots(),
+            queries=queries,
+            last_elem=data.last_element,
+            last_random=transcript.random(),
+        )
+
+    def verify(self) -> None:
+        """Standalone verification with a fresh transcript
+        (reference src/fri/mod.rs:311-340)."""
+        if len(self.queries) != NUM_QUERIES:
+            raise FriError("wrong number of queries")
+        transcript = Transcript()
+        random_elements = []
+        for root in self.commitments:
+            transcript.absorb(root)
+            random_elements.append(transcript.next_challenge())
+        transcript.absorb(self.last_elem.to_bytes())
+        self.verify_queries(transcript, random_elements)
+
+    def verify_queries(self, transcript: Transcript, random_elements: Sequence[Fp]) -> None:
+        if not self.commitments:
+            raise FriError("no commitments")
+        log_domain_size = len(self.commitments) + LOG_BLOWUP
+        if log_domain_size > 40:
+            raise FriError("domain exceeds the field's two-adicity")
+        gen = pow2_generator(log_domain_size)
+        inv_gens = _layer_inv_gens(gen, len(self.commitments))
+        n = (1 << log_domain_size) // 2
+        indices = draw_query_indices(transcript, n, len(self.queries))
+        for query, idx in zip(self.queries, indices):
+            query.verify(
+                self.commitments, self.last_elem, n, idx, gen, random_elements, inv_gens=inv_gens
+            )
+        if self.last_random != transcript.random():
+            raise FriError("incompatible last_random transcript fingerprint")
+
+
+def encode_mle_for_fri(evals: torch.Tensor) -> torch.Tensor:
+    """eval form -> bit-reversed coefficient form -> RS codeword.
+
+    The coefficient bit-reversal aligns FRI's even/odd low-bit split with
+    sumcheck's MSB top/bottom-half fold (reference
+    multilinear_pcs.rs:101-107, Q8).
+    """
+    return reed_solomon(bit_reverse(to_coeffs(evals)))

@@ -1,0 +1,173 @@
+"""SHA-256 Merkle commitments: device-hashed levels, host path logic.
+
+Capability parity with reference src/merkle_tree/mod.rs (commit, open,
+verify; no leaf/node domain separation; Direction-encoded paths whose
+directions also re-derive the leaf index on verify):
+
+* every tree level is hashed in one ``sha256_words`` pass, leaves included;
+* the digest levels stay on the device; opening gathers the leaf payloads
+  and sibling digests of ALL queries of ALL trees into one tensor, so the
+  query phase costs one device->host copy;
+* path verification is host-side hashlib (it is O(queries * log n)).
+
+Levels are stored in NATURAL order: level l+1's message batch is level l
+viewed as (n/2, 16) words, a zero-copy reshape in this layout.  (The JAX
+package stores upper levels bit-reversed to dodge an XLA tiling cost; roots
+and opened paths are identical either way.)
+
+Leaf payloads are field-element vectors: a leaf's message bytes are the
+concatenated 16-LE-byte encodings of its elements (reference
+``ReedSolomonPair`` byte view, src/fri/mod.rs:37-43).
+"""
+
+from __future__ import annotations
+
+import hashlib
+from dataclasses import dataclass
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from . import stats
+from .field import limbs
+from .field.scalar import Fp
+from .sha256 import digests_to_bytes, limbs_to_words, sha256_words
+
+# Direction encoding, matching the reference enum (src/merkle_tree/mod.rs:13-18):
+# the direction tells where the SIBLING sits relative to the path node.
+RIGHT = 0  # current index even: sibling is the right child
+LEFT = 1  # current index odd:  sibling is the left child
+
+
+def tree_levels(leaf_digests: torch.Tensor) -> List[torch.Tensor]:
+    """All levels above (n, 8) leaf digests, root last."""
+    levels = []
+    cur = leaf_digests
+    while cur.shape[0] > 1:
+        cur = sha256_words(cur.reshape(cur.shape[0] // 2, 16))
+        levels.append(cur)
+    return levels
+
+
+def leaf_hashes(leaf_columns: torch.Tensor) -> torch.Tensor:
+    """(B, n, 4) leaf payload columns -> (n, 8) leaf digests; leaf i's
+    message is the B elements' byte encodings concatenated."""
+    B = leaf_columns.shape[0]
+    msg = torch.cat([limbs_to_words(leaf_columns[b]) for b in range(B)], dim=-1)
+    return sha256_words(msg)
+
+
+class MerkleTree:
+    """Binary SHA-256 tree over a power-of-two number of leaves.
+
+    ``leaf_columns`` is the committed payload, (B, n, 4): B field elements
+    per leaf.  ``layers`` are (n_i, 8) digest-word tensors, leaf level first.
+    """
+
+    def __init__(self, layers: List[torch.Tensor], leaf_columns: torch.Tensor):
+        self.layers = layers
+        self.leaf_columns = leaf_columns
+        self._root_bytes = None
+
+    @staticmethod
+    def commit(leaf_columns: torch.Tensor) -> "MerkleTree":
+        B, n, _ = leaf_columns.shape
+        assert n & (n - 1) == 0 and n > 0, "leaf count must be a power of two"
+        leaf = leaf_hashes(leaf_columns)
+        return MerkleTree([leaf] + tree_levels(leaf), leaf_columns)
+
+    @property
+    def num_leaves(self) -> int:
+        return self.layers[0].shape[0]
+
+    @property
+    def root_words(self) -> torch.Tensor:
+        """The (8,) root digest words, on the tree's device."""
+        return self.layers[-1][0]
+
+    @property
+    def has_root_bytes(self) -> bool:
+        return self._root_bytes is not None
+
+    def set_root_words(self, words) -> None:
+        """Install the root from its (8,) digest words already on the host
+        (a caller that fetched them together with other data)."""
+        self._root_bytes = digests_to_bytes(np.asarray(words).reshape(1, 8))[0].tobytes()
+
+    def root_bytes(self) -> bytes:
+        if self._root_bytes is None:
+            self.set_root_words(stats.fetch(self.root_words))
+        return self._root_bytes
+
+    # -- opening -------------------------------------------------------------
+    def _gather(self, idx: torch.Tensor) -> torch.Tensor:
+        """Flat int32 tensor: B*nq*4 payload limbs, then L*nq*8 sibling words."""
+        parts = [self.leaf_columns[:, idx].reshape(-1)]
+        cur = idx
+        for layer in self.layers[:-1]:
+            parts.append(layer[cur ^ 1].reshape(-1))
+            cur = cur >> 1
+        return torch.cat(parts)
+
+    def _assemble(self, flat: np.ndarray, idx: Sequence[int]) -> List["MerklePath"]:
+        B, nq, L = self.leaf_columns.shape[0], len(idx), len(self.layers) - 1
+        vals = limbs.unpack_ints(flat[: B * nq * 4].view(np.uint32).reshape(B, nq, 4))
+        sibs = digests_to_bytes(flat[B * nq * 4 :]).reshape(L, nq, 32)
+        paths = []
+        for q in range(nq):
+            cur = int(idx[q])
+            path = []
+            for l in range(L):
+                path.append((sibs[l, q].tobytes(), RIGHT if cur % 2 == 0 else LEFT))
+                cur //= 2
+            paths.append(MerklePath([Fp(int(vals[b, q])) for b in range(B)], path))
+        return paths
+
+    @staticmethod
+    def open_batch_many(trees: Sequence["MerkleTree"], idx_lists) -> List[List["MerklePath"]]:
+        """Open several trees at many indices each with ONE device->host copy."""
+        dev = trees[0].layers[0].device
+        flats = [
+            t._gather(torch.as_tensor(list(il), dtype=torch.int64, device=dev))
+            for t, il in zip(trees, idx_lists)
+        ]
+        host = stats.fetch(torch.cat(flats))
+        out, off = [], 0
+        for t, il, f in zip(trees, idx_lists, flats):
+            out.append(t._assemble(host[off : off + f.numel()], il))
+            off += f.numel()
+        return out
+
+    def open_batch(self, indices: Sequence[int]) -> List["MerklePath"]:
+        return MerkleTree.open_batch_many([self], [indices])[0]
+
+    def open(self, index: int) -> "MerklePath":
+        return self.open_batch([index])[0]
+
+
+@dataclass
+class MerklePath:
+    """Inclusion path: leaf payload + (sibling digest, direction) per level.
+
+    Matches reference MerkleInclusionPath (src/merkle_tree/mod.rs:20-24);
+    ``verify`` recomputes both the root and the index from the directions
+    (src/merkle_tree/mod.rs:216-246).
+    """
+
+    values: List[Fp]  # the leaf's field elements
+    path: List[Tuple[bytes, int]]  # (sibling digest bytes, LEFT/RIGHT)
+
+    def leaf_bytes(self) -> bytes:
+        return b"".join(v.to_bytes() for v in self.values)
+
+    def verify(self, root: bytes, index: int) -> bool:
+        h = hashlib.sha256(self.leaf_bytes()).digest()
+        computed_index = 0
+        for i, (sib, direction) in enumerate(self.path):
+            if direction == LEFT:
+                computed_index += 1 << i
+                h = hashlib.sha256(sib + h).digest()
+            else:
+                h = hashlib.sha256(h + sib).digest()
+        return h == root and computed_index == index

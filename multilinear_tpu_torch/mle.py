@@ -1,0 +1,187 @@
+"""Multilinear polynomials on the boolean hypercube.
+
+A multilinear polynomial in n variables is a ``(2^n, 4)`` field tensor
+(coefficient or evaluation form over {0,1}^n):
+
+* zeta / Moebius butterflies convert between forms, one pass per index bit
+  (reference semantics: src/polynomials.rs:111-124, 150-163);
+* the eq/delta weight table is built by tensor-product doubling (same
+  output as the reference's per-row Mask loop,
+  src/constraint_system/evaluation.rs:50-91);
+* evaluation at a point is a delta-table dot product.
+
+Variable order is big-endian (quirk Q8): the FIRST variable corresponds to
+the MOST significant bit of the hypercube index.
+
+Still to port here: the JAX package's fused multi-bit zeta/Moebius kernel
+(``zm_butterfly_axis2``) and its tensor-product kernel (``kron_mul``); this
+module takes the unfused routes - per-bit ``ops.add``/``ops.sub`` passes and
+broadcast + ``ops.mul``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .field import limbs, ops
+from .field.scalar import Fp, ONE, P
+
+# ---------------------------------------------------------------------------
+# form conversions (zeta / Moebius transforms)
+# ---------------------------------------------------------------------------
+
+
+def _bit_passes(x: torch.Tensor, op) -> torch.Tensor:
+    """hi' = op(hi, lo) for every index bit of the value axis, in place on a
+    copy of ``x``.  The per-bit passes commute."""
+    n = x.shape[0]
+    bits = n.bit_length() - 1
+    assert 1 << bits == n, "size must be a power of two"
+    x = x.clone()
+    for i in range(bits):
+        w = x.view(n >> (i + 1), 2, 1 << i, 4)
+        op(w[:, 1], w[:, 0], out=w[:, 1])
+    return x
+
+
+def to_evals(coeffs: torch.Tensor) -> torch.Tensor:
+    """Coefficient -> evaluation form over {0,1}^n (zeta transform)."""
+    return _bit_passes(coeffs, ops.add)
+
+
+def to_coeffs(evals: torch.Tensor) -> torch.Tensor:
+    """Evaluation -> coefficient form (Moebius transform)."""
+    return _bit_passes(evals, ops.sub)
+
+
+def bit_reverse(x: torch.Tensor) -> torch.Tensor:
+    """Bit-reverse permutation along the value axis of an (n, 4) tensor
+    (reference src/ntt/mod.rs:113-123)."""
+    n = x.shape[0]
+    bits = n.bit_length() - 1
+    if bits <= 1:
+        return x
+    return x[bitrev_indices(n, x.device)]
+
+
+_HOST_BITREV_BITS = 13
+
+
+def _bitrev_host(bits: int) -> np.ndarray:
+    idx = np.arange(1 << bits, dtype=np.int64)
+    rev = np.zeros_like(idx)
+    for b in range(bits):
+        rev |= ((idx >> b) & 1) << (bits - 1 - b)
+    return rev
+
+
+def bitrev_indices(n: int, device) -> torch.Tensor:
+    """int64 tensor r with r[i] = i bit-reversed over log2(n) bits.  Small
+    tables are made on the host; a large one is composed on the device from
+    the tables of its two halves: for i = hi * 2^l + lo,
+    rev(i) = rev_l(lo) * 2^h + rev_h(hi)."""
+    bits = n.bit_length() - 1
+    if bits <= _HOST_BITREV_BITS:
+        return torch.from_numpy(_bitrev_host(bits)).to(device)
+    lo_bits = bits // 2
+    hi_bits = bits - lo_bits
+    rev_lo = torch.from_numpy(_bitrev_host(lo_bits)).to(device)
+    rev_hi = torch.from_numpy(_bitrev_host(hi_bits)).to(device)
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    return (rev_lo[idx & ((1 << lo_bits) - 1)] << hi_bits) | rev_hi[idx >> lo_bits]
+
+
+# ---------------------------------------------------------------------------
+# eq / delta tables and evaluation
+# ---------------------------------------------------------------------------
+
+# Tensor-product tables are built hybrid: exact host integers for sub-tables
+# of <= _CHUNK_VARS variables (a few hundred multiplies), then one big device
+# multiply per sub-table to kron them together.
+_CHUNK_VARS = 8
+
+
+def _kron_mul(a: torch.Tensor, b: torch.Tensor, out=None) -> torch.Tensor:
+    """Tensor-product combine: (m, 4), (n, 4) -> (m*n, 4), out[i*n+j] = a[i]*b[j]."""
+    m, n = a.shape[0], b.shape[0]
+    if out is not None:
+        out = out.view(m, n, 4)
+    return ops.mul(a.reshape(m, 1, 4), b.reshape(1, n, 4), out=out).reshape(m * n, 4)
+
+
+def combine_subtables(subs, out=None) -> torch.Tensor:
+    """Left fold of sub-table tensor products: (c0 (x) c1) (x) c2 ...; the
+    last product is written into ``out`` when given."""
+    d = subs[0]
+    for i, s in enumerate(subs[1:], start=2):
+        d = _kron_mul(d, s, out if i == len(subs) else None)
+    if out is not None and len(subs) == 1:
+        out.copy_(d)
+        return out
+    return d
+
+
+def _host_factor_table(factors):
+    """Product table of per-variable (f0_j, f1_j) factor pairs, big-endian:
+    out[i] = prod_j f_{bit_j(i)}(j), earlier pairs on more significant bits."""
+    table = [1]
+    for f0, f1 in factors:
+        table = [v * f % P for v in table for f in (f0, f1)]
+    return table
+
+
+def factor_subtables(factors, device):
+    """Host-built device sub-tables of <= _CHUNK_VARS variables each."""
+    chunks = [factors[i : i + _CHUNK_VARS] for i in range(0, len(factors), _CHUNK_VARS)]
+    return [limbs.pack_ints(_host_factor_table(c), device=device) for c in chunks]
+
+
+def delta_subtables(points, device):
+    """Sub-tables whose tensor product is delta_table(points); None if empty."""
+    pts = [Fp(p) for p in points]
+    if not pts:
+        return None
+    return factor_subtables([((ONE - p).v, p.v) for p in pts], device)
+
+
+def product_table(factors, device) -> torch.Tensor:
+    """Device (2^n, 4) table from per-variable factor pairs (host ints)."""
+    return combine_subtables(factor_subtables(factors, device))
+
+
+def delta_table(points, device) -> torch.Tensor:
+    """eq(points, .) over all 2^n hypercube corners; points[0] pairs with the
+    MSB of the table index (reference Mask convention,
+    src/constraint_system/evaluation.rs:62-70)."""
+    pts = [Fp(p) for p in points]
+    if not pts:
+        return limbs.pack_ints([1], device=device)
+    return product_table([((ONE - p).v, p.v) for p in pts], device)
+
+
+def evaluate_evals(evals: torch.Tensor, points) -> torch.Tensor:
+    """Evaluate an MLE in evaluation form at an arbitrary point: a (4,)
+    field tensor (semantics of reference src/polynomials.rs:165-188)."""
+    d = delta_table(points, evals.device)
+    return ops.sum_mod(ops.mul(d, evals), dim=0)
+
+
+def evaluate_evals_host(evals: torch.Tensor, points) -> Fp:
+    """Convenience: evaluate and return a host Fp."""
+    return Fp(limbs.unpack_int(evaluate_evals(evals, points)))
+
+
+# ---------------------------------------------------------------------------
+# host reference helpers (exact, for tests and the verifier)
+# ---------------------------------------------------------------------------
+
+
+def eq_scalar(a, b) -> Fp:
+    """eq(a, b) = prod a_i b_i + (1-a_i)(1-b_i) on host Fp lists
+    (reference Delta::evaluate, src/constraint_system/evaluation.rs:80-91)."""
+    acc = ONE
+    for x, y in zip(a, b):
+        x, y = Fp(x), Fp(y)
+        acc = acc * (x * y + (ONE - x) * (ONE - y))
+    return acc

@@ -1,0 +1,177 @@
+"""Proof serialization: a deterministic little-endian binary codec.
+
+Capability parity with the reference's serde+bincode round-trip
+(reference src/fri/mod.rs:367-397: little-endian, fixed-int encoding;
+field elements as 16 raw LE bytes per src/field.rs:40-64).  The layout
+mirrors bincode's fixed-int conventions - u64 LE length prefixes for
+sequences, raw fixed-size byte blobs for digests and field elements,
+one byte per Direction - so proof sizes are directly comparable, and the
+bytes equal the JAX package's for the same proof.
+
+This slice carries the PCS proof; the standalone FRI, batched and
+constraint-system proof codecs are later slices.
+"""
+
+from __future__ import annotations
+
+import struct
+from typing import List
+
+from .field.scalar import Fp
+from .fri import FriProof, QueryProof
+from .merkle import MerklePath
+from .pcs import PCSProof
+from .sumcheck import SumcheckPoly
+
+
+class _Writer:
+    def __init__(self):
+        self.parts: List[bytes] = []
+
+    def u64(self, v: int):
+        self.parts.append(struct.pack("<Q", v))
+
+    def u8(self, v: int):
+        self.parts.append(bytes([v]))
+
+    def raw(self, b: bytes):
+        self.parts.append(b)
+
+    def felt(self, x: Fp):
+        self.parts.append(x.to_bytes())
+
+    def felts(self, xs):
+        self.u64(len(xs))
+        for x in xs:
+            self.felt(x)
+
+    def digest(self, d: bytes):
+        assert len(d) == 32
+        self.parts.append(d)
+
+    def done(self) -> bytes:
+        return b"".join(self.parts)
+
+
+class _Reader:
+    def __init__(self, buf: bytes):
+        self.buf = buf
+        self.off = 0
+
+    def u64(self) -> int:
+        (v,) = struct.unpack_from("<Q", self.buf, self.off)
+        self.off += 8
+        return v
+
+    def u8(self) -> int:
+        v = self.buf[self.off]
+        self.off += 1
+        return v
+
+    def raw(self, n: int) -> bytes:
+        b = self.buf[self.off : self.off + n]
+        if len(b) != n:
+            raise ValueError("truncated proof buffer")
+        self.off += n
+        return b
+
+    def felt(self) -> Fp:
+        return Fp.from_bytes(self.raw(16))
+
+    def felts(self) -> List[Fp]:
+        return [self.felt() for _ in range(self.u64())]
+
+    def digest(self) -> bytes:
+        return self.raw(32)
+
+    def expect_end(self):
+        if self.off != len(self.buf):
+            raise ValueError("trailing bytes in proof buffer")
+
+
+# -- Merkle paths -------------------------------------------------------------
+
+
+def _write_path(w: _Writer, p: MerklePath):
+    w.felts(p.values)
+    w.u64(len(p.path))
+    for sib, direction in p.path:
+        w.digest(sib)
+        w.u8(direction)
+
+
+def _read_path(r: _Reader) -> MerklePath:
+    values = r.felts()
+    path = []
+    for _ in range(r.u64()):
+        sib = r.digest()
+        direction = r.u8()
+        path.append((sib, direction))
+    return MerklePath(values, path)
+
+
+# -- FRI ----------------------------------------------------------------------
+
+
+def _write_query(w: _Writer, q: QueryProof):
+    w.u64(len(q.paths))
+    for p in q.paths:
+        _write_path(w, p)
+
+
+def _read_query(r: _Reader) -> QueryProof:
+    return QueryProof([_read_path(r) for _ in range(r.u64())])
+
+
+def _write_fri(w: _Writer, proof: FriProof):
+    w.u64(len(proof.commitments))
+    for c in proof.commitments:
+        w.digest(c)
+    w.u64(len(proof.queries))
+    for q in proof.queries:
+        _write_query(w, q)
+    w.felt(proof.last_elem)
+    w.digest(proof.last_random)
+
+
+def _read_fri(r: _Reader) -> FriProof:
+    commitments = [r.digest() for _ in range(r.u64())]
+    queries = [_read_query(r) for _ in range(r.u64())]
+    last_elem = r.felt()
+    last_random = r.digest()
+    return FriProof(commitments, queries, last_elem, last_random)
+
+
+# -- sumcheck round polynomials ------------------------------------------------
+
+
+def _write_pols(w: _Writer, pols: List[SumcheckPoly]):
+    w.u64(len(pols))
+    for p in pols:
+        w.felts(p.nonzero_coeffs)
+
+
+def _read_pols(r: _Reader) -> List[SumcheckPoly]:
+    return [SumcheckPoly(r.felts()) for _ in range(r.u64())]
+
+
+# -- PCS ------------------------------------------------------------------------
+
+
+def pcs_proof_to_bytes(proof: PCSProof) -> bytes:
+    w = _Writer()
+    _write_fri(w, proof.fri_proof)
+    _write_pols(w, proof.sumcheck_polynomials)
+    w.felts(proof.inputs)
+    w.felt(proof.output)
+    return w.done()
+
+
+def pcs_proof_from_bytes(buf: bytes) -> PCSProof:
+    r = _Reader(buf)
+    fri = _read_fri(r)
+    pols = _read_pols(r)
+    inputs = r.felts()
+    output = r.felt()
+    r.expect_end()
+    return PCSProof(fri, pols, inputs, output)

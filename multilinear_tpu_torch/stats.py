@@ -1,0 +1,36 @@
+"""Counters a run can read back: device->host copies and routing events.
+
+``fetch`` is the ONE place the prover copies a device tensor to the host,
+so ``counts()["d2h_copies"]`` is the number of host synchronizations a
+prove paid (the Fiat-Shamir transcript lives on the host: one small copy
+per round).
+"""
+
+from __future__ import annotations
+
+from collections import Counter
+
+import numpy as np
+import torch
+
+_COUNTS: Counter = Counter()
+
+
+def bump(name: str, n: int = 1) -> None:
+    _COUNTS[name] += n
+
+
+def counts() -> dict:
+    return dict(_COUNTS)
+
+
+def reset() -> None:
+    _COUNTS.clear()
+
+
+def fetch(t: torch.Tensor) -> np.ndarray:
+    """Copy a tensor to the host as a numpy array (counted when it crosses
+    from a device)."""
+    if t.device.type != "cpu":
+        bump("d2h_copies")
+    return t.detach().cpu().contiguous().numpy()

@@ -1,0 +1,205 @@
+"""The PCS slice of the PyTorch port held against the JAX package, end to end.
+
+The same evaluations and point, made from a numpy seed, go through
+``multilinear_tpu.pcs.PCSProof.prove`` and the port's (its plain versions, on
+CPU tensors).  Everything compared is integers and bytes: every comparison is
+exact.  At these sizes the JAX prover takes its host-native route, so no
+large XLA program is compiled.
+"""
+
+import hashlib
+import json
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from multilinear_tpu.field import limbs as jlimbs
+from multilinear_tpu.field.scalar import Fp as JFp
+from multilinear_tpu.pcs import PCSProof as JPCSProof
+from multilinear_tpu.serialize import pcs_proof_from_bytes as j_from_bytes
+from multilinear_tpu.serialize import pcs_proof_to_bytes as j_to_bytes
+from multilinear_tpu.transcript import Transcript as JTranscript
+
+from multilinear_tpu_torch import stats
+from multilinear_tpu_torch.config import ProverConfig
+from multilinear_tpu_torch.field import limbs
+from multilinear_tpu_torch.field.scalar import Fp, P
+from multilinear_tpu_torch.fri import FriError
+from multilinear_tpu_torch.mle import evaluate_evals_host
+from multilinear_tpu_torch.pcs import PCSProof, PCSProverSession
+from multilinear_tpu_torch.serialize import pcs_proof_from_bytes, pcs_proof_to_bytes
+from multilinear_tpu_torch.testdata import pcs_golden_inputs
+from multilinear_tpu_torch.transcript import Transcript
+
+CPU = ProverConfig(device="cpu", debug_checks=True)
+GOLDEN = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "multilinear_tpu_torch", "testdata", "pcs_golden.json",
+)
+
+
+def _case(n_vars: int, seed: int):
+    """(jax limb array (8, 2^n), point as ints) from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    vals = [int.from_bytes(rng.bytes(16), "little") % P for _ in range(1 << n_vars)]
+    point = [int.from_bytes(rng.bytes(16), "little") % P for _ in range(n_vars)]
+    return jlimbs.pack_ints(vals), point
+
+
+def _port_prove(jax_limbs, point, config=CPU):
+    evals = limbs.from_jax_limbs(jax_limbs)
+    pt = [Fp(v) for v in point]
+    out = evaluate_evals_host(evals, pt)
+    return PCSProof.prove(pt, out, evals, Transcript(), config), out
+
+
+def _jax_prove(jax_limbs, point, out_v):
+    pt = [JFp(v) for v in point]
+    return JPCSProof.prove(pt, JFp(out_v), jnp.asarray(jax_limbs), JTranscript())
+
+
+_PROOFS = {}
+
+
+def _both(n_vars):
+    if n_vars not in _PROOFS:
+        jl, point = _case(n_vars, 100 + n_vars)
+        proof, out = _port_prove(jl, point)
+        _PROOFS[n_vars] = (pcs_proof_to_bytes(proof), j_to_bytes(_jax_prove(jl, point, out.v)))
+    return _PROOFS[n_vars]
+
+
+@pytest.mark.parametrize("n_vars", [6, 8, 10])
+def test_proof_bytes_identical(n_vars):
+    port_bytes, jax_bytes = _both(n_vars)
+    assert port_bytes == jax_bytes
+
+
+@pytest.mark.parametrize("n_vars", [6, 8, 10])
+def test_each_verifies_the_others_proof(n_vars):
+    port_bytes, jax_bytes = _both(n_vars)
+    pcs_proof_from_bytes(jax_bytes).verify(Transcript())
+    j_from_bytes(port_bytes).verify(JTranscript())
+
+
+@pytest.mark.parametrize("n_vars", [1, 2, 3])
+def test_tiny_sizes_prove_and_verify(n_vars):
+    """The end of the fold chain: codewords shorter than a warp, the last
+    fold committing nothing."""
+    jl, point = _case(n_vars, 7 + n_vars)
+    proof, out = _port_prove(jl, point)
+    assert len(proof.fri_proof.commitments) == n_vars
+    port_bytes = pcs_proof_to_bytes(proof)
+    pcs_proof_from_bytes(port_bytes).verify(Transcript())
+    assert port_bytes == j_to_bytes(_jax_prove(jl, point, out.v))
+
+
+@pytest.mark.parametrize("where", ["commitment", "query", "sumcheck", "output"])
+def test_corrupted_bytes_raise(where):
+    port_bytes, _ = _both(6)
+    pos = {
+        "commitment": 8 + 5,  # inside the first root
+        "query": len(port_bytes) // 2,
+        "sumcheck": len(port_bytes) - 16 * (6 + 1) - 8 - 20,  # a round coefficient
+        "output": len(port_bytes) - 3,
+    }[where]
+    bad = bytearray(port_bytes)
+    bad[pos] ^= 0x01
+    with pytest.raises((FriError, ValueError)):
+        pcs_proof_from_bytes(bytes(bad)).verify(Transcript())
+
+
+def test_truncated_and_trailing_bytes_raise():
+    port_bytes, _ = _both(6)
+    with pytest.raises((ValueError, Exception)):
+        pcs_proof_from_bytes(port_bytes[:-1])
+    with pytest.raises(ValueError):
+        pcs_proof_from_bytes(port_bytes + b"\0")
+
+
+def test_wrong_claim_is_rejected():
+    jl, point = _case(6, 106)
+    evals = limbs.from_jax_limbs(jl)
+    pt = [Fp(v) for v in point]
+    wrong = evaluate_evals_host(evals, pt) + Fp(1)
+    proof = PCSProof.prove(pt, wrong, evals, Transcript(), CPU)
+    with pytest.raises(FriError):
+        proof.verify(Transcript())
+
+
+def test_session_in_stages_equals_one_shot():
+    jl, point = _case(6, 106)
+    evals = limbs.from_jax_limbs(jl)
+    pt = [Fp(v) for v in point]
+    out = evaluate_evals_host(evals, pt)
+    s = PCSProverSession(pt, out, evals, Transcript(), CPU)
+    assert s.run_rounds(2) == 2
+    assert s.run_rounds(1) == 1
+    assert s.run_rounds() == 3
+    assert pcs_proof_to_bytes(s.finish()) == _both(6)[0]
+
+
+def test_one_host_copy_per_round(monkeypatch):
+    """Host Fiat-Shamir costs one device->host copy per round.  Every copy
+    of the prover goes through ``stats.fetch``; count the calls."""
+    jl, point = _case(6, 106)
+    evals = limbs.from_jax_limbs(jl)
+    pt = [Fp(v) for v in point]
+    out = evaluate_evals_host(evals, pt)
+    shapes = []
+    real = stats.fetch
+
+    def counting(t):
+        shapes.append(tuple(t.shape))
+        return real(t)
+
+    monkeypatch.setattr(stats, "fetch", counting)
+    PCSProof.prove(pt, out, evals, Transcript(), CPU)
+    # 6 rounds (root + two unreduced sums: 24 words each), the last fold's
+    # two elements, and the query openings; no root needs a copy of its own
+    assert shapes[:6] == [(24,)] * 6
+    assert len(shapes) == 6 + 1 + 1, shapes
+
+
+def test_phase_split_marks_each_phase_once():
+    """encode, commit_l0, tables, rounds, queries - commit_l0 marked once."""
+    from multilinear_tpu_torch import utils
+
+    jl, point = _case(3, 10)
+    marks = []
+    real_mark = utils.PhaseTimer.mark
+
+    def spy(self, name):
+        marks.append(name)
+        real_mark(self, name)
+
+    utils.PhaseTimer.mark = spy
+    try:
+        with utils.collect_phases() as phases:
+            _port_prove(jl, point)
+    finally:
+        utils.PhaseTimer.mark = real_mark
+    assert marks == ["encode", "commit_l0", "tables", "rounds", "queries"]
+    assert sorted(phases) == sorted(marks) and all(v >= 0 for v in phases.values())
+    with utils.collect_phases() as again:
+        pass
+    assert again == {}
+
+
+def test_golden_digest_matches_both_packages():
+    """The fixture chip_smoke.py checks on the card: SHA-256 of the proof
+    bytes at log_n = 10 for inputs made by ``testdata.pcs_golden_inputs``.
+    Recomputed here from the JAX package, so the fixture cannot rot."""
+    with open(GOLDEN) as f:
+        golden = json.load(f)
+    vals, point = pcs_golden_inputs(golden["log_n"], golden["seed"])
+    jl = jlimbs.pack_ints(vals)
+    proof, out = _port_prove(jl, point, ProverConfig(device="cpu"))
+    port_bytes = pcs_proof_to_bytes(proof)
+    jax_bytes = j_to_bytes(_jax_prove(jl, point, out.v))
+    assert out.v == int(golden["output"])
+    assert len(port_bytes) == golden["proof_bytes"]
+    assert hashlib.sha256(jax_bytes).hexdigest() == golden["sha256"]
+    assert hashlib.sha256(port_bytes).hexdigest() == golden["sha256"]
