@@ -4,15 +4,18 @@
 Needs one NVIDIA card, nvcc and PyTorch built for CUDA; fails without them.
 It builds the CUDA kernels from ``multilinear_tpu_torch/csrc``, holds each
 against its plain PyTorch version on the card (all values are integers: the
-tolerance is 0 mismatches), then drives the port's main path - a PCS prove
-and verify through ``PCSProof.prove`` / ``PCSProof.verify`` - at 2^16, 2^20
-and 2^24 evaluations, checks byte parity with the CPU path and the golden
-digest, and checks that a corrupted proof is rejected.
+tolerance is 0 mismatches), then drives the port's main paths - a PCS prove
+and verify through ``PCSProof.prove`` / ``PCSProof.verify`` at 2^16, 2^20
+and 2^24 evaluations, and a batched PCS prove and verify through
+``BatchedPCSProof.prove`` / ``.verify`` at 10 x 2^20 and 10 x 2^22 - checks
+byte parity with the CPU path and the golden digests of both proof types,
+and checks that a corrupted proof of either type is rejected.
 
 Each phase prints one JSON line.  Near the end come one line
-``{"kernels": [...]}`` with every kernel's launches on the main path, error,
-time, plain-version time and bound, then the card's name and power limit,
-and last ``{"ok": true, "device": {...}}``.
+``{"kernels": [...]}`` with every kernel's launches on the driven paths
+(counted per path: the counts are set to 0 just before each and read just
+after), error, time, plain-version time and bound, then the card's name and
+power limit, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -31,24 +34,29 @@ import time
 import numpy as np
 import torch
 
-from multilinear_tpu_torch import _build, sha256_cuda, stats
+from multilinear_tpu_torch import _build, fri, merkle, mle, ntt, sha256_cuda, stats
+from multilinear_tpu_torch.batched_pcs import BatchedPCSClaim, BatchedPCSProof
 from multilinear_tpu_torch.config import ProverConfig
-from multilinear_tpu_torch.field import cuda_ops, limbs
-from multilinear_tpu_torch.field.scalar import Fp, P
+from multilinear_tpu_torch.field import cuda_ops, limbs, ops
+from multilinear_tpu_torch.field.scalar import Fp, P, pow2_generator
 from multilinear_tpu_torch.fri import FriError
-from multilinear_tpu_torch import mle, ntt
-from multilinear_tpu_torch.field import ops
-from multilinear_tpu_torch.field.scalar import pow2_generator
 from multilinear_tpu_torch.mle import evaluate_evals_host
 from multilinear_tpu_torch.ntt import clear_caches, inv_gen_pows
 from multilinear_tpu_torch.pcs import PCSProof
-from multilinear_tpu_torch.serialize import pcs_proof_from_bytes, pcs_proof_to_bytes
-from multilinear_tpu_torch.testdata import pcs_golden_inputs
+from multilinear_tpu_torch.serialize import (
+    batched_pcs_proof_from_bytes,
+    batched_pcs_proof_to_bytes,
+    pcs_proof_from_bytes,
+    pcs_proof_to_bytes,
+)
+from multilinear_tpu_torch.testdata import batched_pcs_golden_inputs, pcs_golden_inputs
 from multilinear_tpu_torch.transcript import Transcript
 from multilinear_tpu_torch.utils import collect_phases
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PCS_LOG_SIZES = (16, 20, 24)
+BATCH_POLYS = 10  # the reference batched workload's width
+BATCHED_LOG_SIZES = (20, 22)
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet).  The data sheet has
 # no row for 32-bit integer arithmetic outside the tensor cores; the float32
@@ -86,9 +94,33 @@ KERNELS = {
         "source": "multilinear_tpu_torch/csrc/sha256_words.cu",
         "replaces": "multilinear_tpu/sha256_pallas.py:106",
     },
+    "zm_butterfly": {
+        "source": "multilinear_tpu_torch/csrc/zm.cu",
+        "replaces": "multilinear_tpu/field/pallas_ops.py:660",
+    },
+    "kron_mul": {
+        "source": "multilinear_tpu_torch/csrc/kron.cu",
+        "replaces": "multilinear_tpu/field/pallas_ops.py:595",
+    },
+    "butterfly2": {
+        "source": "multilinear_tpu_torch/csrc/butterfly2.cu",
+        "replaces": "multilinear_tpu/field/pallas_ops.py:445",
+    },
+    "butterfly_notw": {
+        "source": "multilinear_tpu_torch/csrc/butterfly.cu",
+        "replaces": "multilinear_tpu/field/pallas_ops.py:477",
+    },
     "butterfly": {
         "source": "multilinear_tpu_torch/csrc/butterfly.cu",
         "replaces": "multilinear_tpu/field/pallas_ops.py:346",
+    },
+    "twiddle_mul3": {
+        "source": "multilinear_tpu_torch/csrc/twiddle_mul3.cu",
+        "replaces": "multilinear_tpu/field/pallas_ops.py:539",
+    },
+    "fold_codeword": {
+        "source": "multilinear_tpu_torch/csrc/fold.cu",
+        "replaces": "multilinear_tpu/field/pallas_ops.py:281",
     },
     "fold_commit_leaves": {
         "source": "multilinear_tpu_torch/csrc/fold_commit.cu",
@@ -248,14 +280,14 @@ def kernels_phase(dev) -> dict:
         lambda: cuda_ops.mul_plain(a, b), shapes=[list(a.shape), list(b.shape)])
 
     # add: the X=2 extension of round 0, on the two halves of the packed
-    # (2, 2^24) table; sub: one Moebius pass over 2^24 evaluations
+    # (2, 2^24) table; sub: hi - lo on strided halves of 2^24 elements
     n = 1 << 24
     data = random_field(rng, (2, n), dev)
     hi, lo = data[:, n // 2:], data[:, : n // 2]
     run("add", "main halves of (2, 2^24)", lambda: cuda_ops.add(hi, lo), lambda: ops.add_plain(hi, lo),
         n_bytes=48 * n, n_ops=OPS_ADD * n, shapes=[list(hi.shape)] * 2, timed=True)
     w = data[0].view(1 << 11, 2, 1 << 12, 4)
-    run("sub", "main Moebius pass, bit 12 of 2^24", lambda: cuda_ops.sub(w[:, 1], w[:, 0]),
+    run("sub", "main strided halves, bit 12 of 2^24", lambda: cuda_ops.sub(w[:, 1], w[:, 0]),
         lambda: ops.sub_plain(w[:, 1], w[:, 0]),
         n_bytes=48 * (n // 2), n_ops=OPS_ADD * (n // 2), shapes=[list(w[:, 1].shape)] * 2, timed=True)
 
@@ -271,14 +303,18 @@ def kernels_phase(dev) -> dict:
         wy[:, 1] = ops.sub_plain(wy[:, 1], wy[:, 0])
         return y
 
-    run("sub", "Moebius pass written in place", in_place, in_place_plain, shapes=[list(w[:, 1].shape)] * 2)
+    run("sub", "strided halves written in place", in_place, in_place_plain, shapes=[list(w[:, 1].shape)] * 2)
     small = random_field(rng, (37, 2, 19), dev)
     run("add", "ragged strided", lambda: cuda_ops.add(small[:, 1], small[:, 0]),
         lambda: ops.add_plain(small[:, 1], small[:, 0]), shapes=[[37, 19, 4]] * 2)
     del a, b, data, hi, lo, w, small
 
-    # butterfly: one column stage of the 2^25 four-step transform
-    for label, H, C, timed in (("main H=4096 C=4096", 4096, 4096, True), ("ragged", 37, 19, False)):
+    # butterfly: a two-row sub-transform (all the transforms leave to it), and
+    # one stage of the 2^25 four-step transform, timed as the single-stage
+    # route the double-stage kernel is compared with
+    for label, H, C, timed in (("one stage, H=4096 C=4096", 4096, 4096, True),
+                               ("two-row sub-transform of a tiny prove, H=1 C=2", 1, 2, False),
+                               ("ragged", 37, 19, False)):
         u, v = random_field(rng, (H, C), dev), random_field(rng, (H, C), dev)
         tw = random_field(rng, (H,), dev)
         run("butterfly", label, lambda: cuda_ops.butterfly(u, v, tw),
@@ -287,22 +323,150 @@ def kernels_phase(dev) -> dict:
             shapes=[[H, C, 4], [H, C, 4], [H, 4]], timed=timed)
     del u, v, tw
 
+    # butterfly_notw: the odd 13th stage of the 2^25 transform's column
+    # sub-NTT, on the row halves of (8192, 4096); the batched encode's odd
+    # 11th stage on the row halves of (10, 2048, 4096)
+    for label, shape, timed in (("main, row halves of (8192, 4096)", (8192, 4096), True),
+                                ("batched, row halves of (10, 2048, 4096)", (10, 2048, 4096), False),
+                                ("ragged batch (3, 74, 19)", (3, 74, 19), False),
+                                ("M=2", (2, 1), False)):
+        x = random_field(rng, shape, dev)
+        H = shape[-2] // 2
+        u, v = x[..., :H, :, :], x[..., H:, :, :]
+        n = x.numel() // 8
+        run("butterfly_notw", label, lambda: cuda_ops.butterfly_notw(u, v),
+            lambda: cuda_ops.butterfly_notw_plain(u, v), n_bytes=64 * n, n_ops=2 * OPS_ADD * n,
+            shapes=[list(u.shape)] * 2, timed=timed)
+    u, v = edge_pairs(dev)
+    run("butterfly_notw", "edge pairs", lambda: cuda_ops.butterfly_notw(u.view(16, 16, 4), v.view(16, 16, 4)),
+        lambda: cuda_ops.butterfly_notw_plain(u.view(16, 16, 4), v.view(16, 16, 4)),
+        shapes=[[16, 16, 4]] * 2)
+    del x, u, v
+
+    # butterfly2: the first double stage of the 2^25 transform's column
+    # sub-NTT (13 stages over 8192 rows), with the power table read through
+    # the stride the four-step transform gives it; every double stage of odd
+    # and even small transforms; the batched encode's shape
+    for label, shape, timed in (("main (8192, 4096)", (8192, 4096), True),
+                                ("batched (10, 4096, 2048)", (10, 4096, 2048), False),
+                                ("M=4", (4, 1), False), ("M=8 ragged", (8, 19), False),
+                                ("M=32 batch", (3, 32, 5), False)):
+        x = random_field(rng, shape, dev)
+        M, C = shape[-2], shape[-1]
+        log_m = M.bit_length() - 1
+        stride = 4096 if M == 8192 else 1  # pows[::B] of the 2^25 table
+        table = ntt._pow_table(pow2_generator(log_m + stride.bit_length() - 1).v,
+                               log_m + stride.bit_length() - 2, dev)
+        pows = table[::stride][: M // 2]
+        n = x.numel() // 4
+        for ps in range(log_m // 2) if M <= 32 else (0, log_m // 2 - 1):
+            run("butterfly2", f"{label}, ps={ps}",
+                lambda: cuda_ops.butterfly2(x, pows, ps),
+                lambda: cuda_ops.butterfly2_plain(x, pows, ps),
+                n_bytes=32 * n + 16 * (M // 2), n_ops=(OPS_MUL + 2 * OPS_ADD) * n,
+                shapes=[list(x.shape), list(pows.shape)], timed=timed and ps == 0)
+    x = limbs.pack_ints(EDGES, device=dev).view(4, 4, 4)
+    pows = limbs.pack_ints(EDGES[3:5], device=dev)
+    run("butterfly2", "edge values", lambda: cuda_ops.butterfly2(x, pows, 0),
+        lambda: cuda_ops.butterfly2_plain(x, pows, 0), shapes=[[4, 4, 4], [2, 4]])
+    del x, pows, table
+    clear_caches()
+
+    # twiddle_mul3: the twiddle step of the 2^25 transform, and of the
+    # batched encode's ten 2^23 transforms
+    for label, log_n, batch, timed in (("main (8192, 4096)", 25, None, True),
+                                       ("batched (10, 4096, 2048)", 23, 10, False),
+                                       ("A=2 B=2 S=1", 2, None, False),
+                                       ("A=8 B=4 batch", 5, 3, False)):
+        a_bits = (log_n + 1) // 2
+        A, B = 1 << a_bits, 1 << (log_n - a_bits)
+        Tc, Tf = ntt._twiddle_factors(pow2_generator(log_n).v, log_n, dev)
+        F = random_field(rng, ((batch,) if batch else ()) + (A, B), dev)
+        n = F.numel() // 4
+        run("twiddle_mul3", label, lambda: cuda_ops.twiddle_mul3(F, Tc, Tf),
+            lambda: cuda_ops.twiddle_mul3_plain(F, Tc, Tf),
+            n_bytes=32 * n + 4 * (Tc.numel() + Tf.numel()), n_ops=2 * OPS_MUL * n,
+            shapes=[list(F.shape), list(Tc.shape), list(Tf.shape)], timed=timed)
+    F = limbs.pack_ints(EDGES, device=dev).view(4, 4, 4)
+    Tc, Tf = random_field(rng, (2, 4), dev), limbs.pack_ints(EDGES[8:], device=dev).view(2, 4, 4)
+    run("twiddle_mul3", "edge values", lambda: cuda_ops.twiddle_mul3(F, Tc, Tf),
+        lambda: cuda_ops.twiddle_mul3_plain(F, Tc, Tf), shapes=[[4, 4, 4], [2, 4, 4], [2, 4, 4]])
+    del F, Tc, Tf
+    clear_caches()
+
+    # kron_mul: the last tensor product of the 2^24 eq table, written into
+    # its half of the packed sumcheck table
+    for label, m, n, timed in (("main 2^16 x 2^8 into out", 1 << 16, 1 << 8, True),
+                               ("1 x 1", 1, 1, False), ("ragged 7 x 300", 7, 300, False)):
+        a, b = random_field(rng, (m,), dev), random_field(rng, (n,), dev)
+        packed = torch.zeros((2, m * n, 4), dtype=torch.int32, device=dev)
+        run("kron_mul", label, lambda: cuda_ops.kron_mul(a, b, out=packed[1]),
+            lambda: cuda_ops.kron_mul_plain(a, b),
+            n_bytes=16 * (m * n + m + n), n_ops=OPS_MUL * m * n, shapes=[[m, 4], [n, 4]], timed=timed)
+    a = limbs.pack_ints(EDGES, device=dev)
+    run("kron_mul", "edge pairs", lambda: cuda_ops.kron_mul(a, a), lambda: cuda_ops.kron_mul_plain(a, a),
+        shapes=[[16, 4]] * 2)
+    del a, b, packed
+
+    # zm_butterfly: the Moebius transform of 2^24 evaluations (3 passes) and of
+    # the batched encode's (10, 2^22), both directions, and sizes that end
+    # inside the first pass, on its edge, and one bit past it
+    for label, shape, timed in (("main 2^24", (1 << 24,), True), ("batched (10, 2^22)", (10, 1 << 22), False),
+                                ("n=2", (2,), False), ("n=2^11", (1 << 11,), False),
+                                ("n=2^12 batch of 3", (3, 1 << 12), False)):
+        x = random_field(rng, shape, dev)
+        n = x.numel() // 4
+        bits = shape[-1].bit_length() - 1
+        for add in (False, True):
+            run("zm_butterfly", f"{label}, {'zeta (add)' if add else 'Moebius (sub)'}",
+                lambda: cuda_ops.zm_butterfly(x, add), lambda: cuda_ops.zm_butterfly_plain(x, add),
+                n_bytes=32 * n, n_ops=OPS_ADD * bits * n // 2, shapes=[list(x.shape)],
+                timed=timed and not add)
+    x = limbs.pack_ints(EDGES, device=dev)
+    for add in (False, True):
+        run("zm_butterfly", f"edge values, add={add}", lambda: cuda_ops.zm_butterfly(x, add),
+            lambda: cuda_ops.zm_butterfly_plain(x, add), shapes=[[16, 4]])
+    del x
+
     # sha256_words: the first inner level (2^23 nodes of 16 words) and the
-    # leaf level (2^24 pair leaves of 8 words) of the layer-0 tree
+    # leaf level (2^24 pair leaves of 8 words) of the 2^24 prove's layer-0
+    # tree, and the batch tree's leaves of the 10 x 2^22 prove: 2^22 messages
+    # of 80 words (2 * 10 elements), which take the kernel's run-time width
     sha_cases = (("main inner 2^23 x 16", 1 << 23, 16, True), ("leaves 2^24 x 8", 1 << 24, 8, True),
+                 ("batch leaves 2^22 x 80", 1 << 22, 80, True),
                  ("ragged 1001 x 13", 1001, 13, False), ("ragged 33 x 30", 33, 30, False))
     for label, n, nw, timed in sha_cases:
         msg = torch.from_numpy(
             rng.integers(0, 2**32, size=(n, nw), dtype=np.uint32).view(np.int32)).to(dev)
         blocks = sha256_cuda.n_blocks(nw)
-        run("sha256_words", label, lambda: sha256_cuda.sha256_words(msg),
-            lambda: sha256_cuda.sha256_words_plain(msg),
-            n_bytes=(4 * nw + 32) * n, n_ops=OPS_SHA_BLOCK * blocks * n,
-            shapes=[[n, nw]], timed=timed)
+        row = check_kernel("sha256_words", label, lambda: sha256_cuda.sha256_words(msg),
+                           lambda: sha256_cuda.sha256_words_plain(msg),
+                           (4 * nw + 32) * n, OPS_SHA_BLOCK * blocks * n, [[n, nw]], timed)
+        rows.append(row)
+        if timed:
+            main.setdefault("sha256_words", row)
+            main.setdefault(f"sha256_words/{nw}", row)
     del msg
 
-    # fold_commit_leaves: round 0 of the 2^24 prove, on the 2^25 codeword
+    # fold_codeword: round 0 of the 10 x 2^22 batched prove, on the
+    # fingerprinted 2^23 codeword; the fold that ends every chain (m = 4)
     rh = int.from_bytes(rng.bytes(16), "little") % P
+    for label, m, log_dom, stride, timed in (("main m=2^23", 1 << 23, 23, 1, True),
+                                             ("ragged m=10006", 10006, 16, 4, False),
+                                             ("m=4, the end of a chain", 4, 25, 1 << 23, False),
+                                             ("m=2", 2, 3, 1, False)):
+        code = random_field(rng, (m,), dev)
+        tw = inv_gen_pows(log_dom, dev)
+        run("fold_codeword", label, lambda: cuda_ops.fold_codeword(code, tw, stride, rh),
+            lambda: cuda_ops.fold_codeword_plain(code, tw, stride, rh),
+            n_bytes=64 * (m // 2), n_ops=(2 * OPS_MUL + 4 * OPS_ADD) * (m // 2),
+            shapes=[[m, 4], list(tw.shape)], timed=timed)
+    code, tw = limbs.pack_ints(EDGES, device=dev), limbs.pack_ints(EDGES[:8], device=dev)
+    for rh_edge in (0, 1, P - 1, (P + 1) // 2):
+        run("fold_codeword", f"edge values, rh={rh_edge}", lambda: cuda_ops.fold_codeword(code, tw, 1, rh_edge),
+            lambda: cuda_ops.fold_codeword_plain(code, tw, 1, rh_edge), shapes=[[16, 4], [8, 4]])
+
+    # fold_commit_leaves: round 0 of the 2^24 prove, on the 2^25 codeword
     for label, m, log_dom, stride, timed in (("main m=2^25", 1 << 25, 25, 1, True),
                                              ("ragged m=10004", 10004, 16, 4, False),
                                              ("m=4", 4, 3, 2, False)):
@@ -323,36 +487,52 @@ def kernels_phase(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# the unfused routes that stand in for the six kernels still to be ported
+# each new kernel beside the route that stood in for it
 # ---------------------------------------------------------------------------
 
 
-def unfused_phase(dev, log_n: int = 24) -> None:
-    """Time, at the shapes of the 2^log_n prove (the main path's largest), each route built from plain
-    tensor code and the ported kernels where the JAX package has a fused TPU
-    kernel that is not ported yet.  ``fused_bound_ms`` is the bytes a fused
-    kernel would have to move over the card's memory rate; ``lost_ms`` is the
-    route's time above it, which ranks the kernels for later slices."""
+def routes_phase(dev, log_n: int = 24) -> None:
+    """Time, at the shapes of the 2^log_n prove, the route through each of
+    the six later kernels beside the route that stood in for it before,
+    composed here from the first four kernels (``mul``, ``sub``,
+    ``butterfly``, ``fold_commit_leaves``); then the batched encode as one
+    batch beside a loop over its polynomials.  ``bound_ms`` is the bytes the
+    fused kernel has to move over the card's memory rate."""
     rng = np.random.default_rng(7)
     log_m = log_n + 1
     n, m = 1 << log_n, 1 << log_m
     elem = 16
     rows = []
 
-    def row(kernel, route, fn, fused_bytes):
-        ms = time_ms(fn, 2)
-        b = fused_bytes / PEAK_BYTES_PER_S * 1e3
-        rows.append({"kernel": kernel, "route": route, "ms": ms, "fused_bound_ms": b,
-                     "lost_ms": ms - b})
+    def row(kernel, old_route, old_fn, new_route, new_fn, fused_bytes):
+        old_ms, new_ms = time_ms(old_fn, 2), time_ms(new_fn, 2)
+        rows.append({"kernel": kernel, "old_route": old_route, "old_ms": old_ms,
+                     "new_route": new_route, "new_ms": new_ms,
+                     "bound_ms": fused_bytes / PEAK_BYTES_PER_S * 1e3, "gained_ms": old_ms - new_ms})
         torch.cuda.empty_cache()
 
     x = random_field(rng, (n,), dev)
-    # 8 index bits per pass, each pass reading and writing the table
-    row("zm_butterfly_axis2", "mle.to_coeffs: one ops.sub pass per index bit",
-        lambda: mle.to_coeffs(x), -(-log_n // 8) * 2 * n * elem)
+
+    def per_bit_sub():
+        y = x.clone()
+        for i in range(log_n):
+            w = y.view(n >> (i + 1), 2, 1 << i, 4)
+            cuda_ops.sub(w[:, 1], w[:, 0], out=w[:, 1])
+        return y
+
+    passes = len(cuda_ops.zm_passes(log_n))
+    row("zm_butterfly", "one sub launch per index bit", per_bit_sub,
+        f"mle.to_coeffs: {passes} zm_butterfly passes", lambda: mle.to_coeffs(x), 2 * n * elem)
     subs = mle.delta_subtables([Fp(int.from_bytes(rng.bytes(16), "little")) for _ in range(log_n)], dev)
-    row("kron_mul", "mle.combine_subtables: broadcast + mul",
-        lambda: mle.combine_subtables(subs), n * elem)
+
+    def broadcast_mul():
+        d = subs[0]
+        for t in subs[1:]:
+            d = ops.mul(d.reshape(-1, 1, 4), t.reshape(1, -1, 4)).reshape(-1, 4)
+        return d
+
+    row("kron_mul", "broadcast operands through mul", broadcast_mul,
+        "mle.combine_subtables: kron_mul", lambda: mle.combine_subtables(subs), n * elem)
     del x, subs
 
     a = (log_m + 1) // 2
@@ -362,46 +542,88 @@ def unfused_phase(dev, log_n: int = 24) -> None:
     powsA, powsB = pows[::B][: A // 2], pows[::A][: B // 2]
     code = random_field(rng, (m,), dev)
 
-    def stages():
-        ntt._pease_axis0(code.view(A, B, 4), powsA, a)
-        ntt._pease_axis0(code.view(B, A, 4), powsB, log_m - a)
+    def single_stages(x, pw, log_rows):
+        half = x.shape[0] // 2
+        iota = torch.arange(half, dtype=torch.int64, device=dev)
+        for t in range(log_rows):
+            tw = pw[cuda_ops.stage_exp(t, iota, half)]
+            x = cuda_ops.butterfly(x[:half], x[half:], tw).reshape(x.shape)
+        return x
 
-    # two stages per pass: half as many passes over the codeword
-    row("butterfly2 (+ butterfly_notw)", "ntt._pease_axis0: one butterfly launch per stage",
-        stages, ((log_m + 1) // 2) * 2 * m * elem)
+    row("butterfly2 + butterfly_notw", "one butterfly launch and one twiddle gather per stage",
+        lambda: (single_stages(code.view(A, B, 4), powsA, a),
+                 single_stages(code.view(B, A, 4), powsB, log_m - a)),
+        "ntt._pease_rows: two stages per launch, twiddles indexed in the kernel",
+        lambda: (ntt._pease_rows(code.view(A, B, 4), powsA, a),
+                 ntt._pease_rows(code.view(B, A, 4), powsB, log_m - a)),
+        ((log_m + 1) // 2) * 2 * m * elem)
     Tc, Tf = ntt._twiddle_factors(gen_v, log_m, dev)
     S = Tf.shape[0]
     Fr = code.view(A // S, S, B, 4)
-    row("twiddle_mul3", "ntt.fourstep_transform: two mul passes over Tc and Tf",
+    row("twiddle_mul3", "two mul passes over Tc and Tf",
         lambda: ops.mul(ops.mul(Fr, Tc.reshape(A // S, 1, B, 4)), Tf.reshape(1, S, B, 4)),
+        "one twiddle_mul3 pass", lambda: cuda_ops.twiddle_mul3(code.view(A, B, 4), Tc, Tf),
         2 * m * elem + (Tc.numel() + Tf.numel()) * 4)
-    del code, Fr, Tc, Tf, pows
-    rows.append({"kernel": "fold_codeword", "route": "not on the PCS path: every fold goes through "
-                 "fold_commit_leaves", "ms": 0.0, "fused_bound_ms": 0.0, "lost_ms": 0.0})
+    del Fr, Tc, Tf, pows, powsA, powsB
+
+    # the first fold of the batched prove: fold alone, then an ordinary commit
+    # of the pair leaves, beside the fused fold + leaf hash and the same
+    # upper levels
+    half_code = code[: m // 4]
+    inv = inv_gen_pows(log_m - 2, dev)
+    rh = int.from_bytes(rng.bytes(16), "little") % P
+
+    def fused():
+        nxt, leaf = cuda_ops.fold_commit_leaves(half_code, inv, 1, rh)
+        return nxt, merkle.tree_levels(leaf)
+
+    def fold_then_commit():
+        nxt = cuda_ops.fold_codeword(half_code, inv, 1, rh)
+        return nxt, merkle.MerkleTree.commit(fri._pair_view(nxt))
+
+    row("fold_codeword", "fold_commit_leaves + upper tree levels (m = 2^%d)" % (log_m - 2), fused,
+        "fold_codeword + MerkleTree.commit of the pair leaves", fold_then_commit,
+        (m // 16) * (4 * 16 + 2 * 16 + 2 * 16 + 32))
+    del code, half_code, inv
     clear_caches()
     torch.cuda.empty_cache()
-    rows.sort(key=lambda r: -r["lost_ms"])
-    emit("unfused_routes", log_n=log_n, routes=rows)
+
+    # the batched encode: one batch through kernels that carry a batch
+    # extent, or one polynomial at a time through the same kernels
+    log_b = BATCHED_LOG_SIZES[-1]
+    polys = random_field(rng, (BATCH_POLYS, 1 << log_b), dev)
+    encode = {}
+    for name, fn in (("one_batch", lambda: fri.encode_mle_for_fri(polys)),
+                     ("loop_over_polys", lambda: torch.stack([fri.encode_mle_for_fri(q) for q in polys]))):
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        encode[name] = {"ms": time_ms(fn, 2), "peak_extra_bytes": torch.cuda.max_memory_allocated() - before}
+    del polys
+    clear_caches()
+    torch.cuda.empty_cache()
+    emit("routes", log_n=log_n, routes=rows,
+         batched_encode={"shape": [BATCH_POLYS, 1 << log_b], **encode})
 
 
-def profile_phase(dev, log_n: int) -> None:
+def profile_phase(dev, label: str, prove) -> None:
     """One traced prove: device-busy share and the kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    config = ProverConfig(device=str(dev))
-    evals, point, output = seeded_claim(log_n, 1000 + log_n, dev)
-    PCSProof.prove(point, output, evals, Transcript(), config)  # warm caches and allocator
+    prove()  # warm caches and allocator
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        PCSProof.prove(point, output, evals, Transcript(), config)
+        prove()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     ev = [e for e in prof.key_averages() if e.device_time_total > 0 and
           e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.device_time_total for e in ev) / 1e6
-    top = sorted(ev, key=lambda e: -e.device_time_total)[:12]
-    emit("profile", log_n=log_n, traced_prove_s=wall, device_busy_s=busy,
+    top = sorted(ev, key=lambda e: -e.device_time_total)[:14]
+    emit("profile", path=label, traced_prove_s=wall, device_busy_s=busy,
          device_idle_share=max(0.0, 1 - busy / wall), device_kernels=sum(e.count for e in ev),
          top=[{"name": e.key[:60], "calls": e.count, "device_ms": e.device_time_total / 1e3}
               for e in top])
@@ -410,8 +632,11 @@ def profile_phase(dev, log_n: int) -> None:
 
 
 # ---------------------------------------------------------------------------
-# the main path
+# the main paths
 # ---------------------------------------------------------------------------
+
+# launch counts of each driven path: set to 0 just before it, read just after
+PATH_LAUNCHES: dict = {}
 
 
 def seeded_claim(log_n: int, seed: int, dev):
@@ -421,91 +646,172 @@ def seeded_claim(log_n: int, seed: int, dev):
     return evals, point, evaluate_evals_host(evals, point)
 
 
-def pcs_phase(dev, log_sizes) -> dict:
-    """Prove and verify at each size; returns the launch counts of the
-    largest (the main path's run)."""
+def seeded_batched_claim(n_polys: int, log_n: int, seed: int, dev):
+    rng = np.random.default_rng(seed)
+    polys = random_field(rng, (n_polys, 1 << log_n), dev)
+    point = [Fp(int.from_bytes(rng.bytes(16), "little")) for _ in range(log_n)]
+    outputs = [evaluate_evals_host(polys[j], point) for j in range(n_polys)]
+    return polys, BatchedPCSClaim(point, outputs)
+
+
+def timed_prove(prove, to_bytes, from_bytes) -> dict:
+    """Drive one path: prove (timed to the end of the device's work),
+    serialize, deserialize + verify on the host.  The launch counts are set
+    to 0 just before and read just after."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with collect_phases() as phases:
+        t0 = time.perf_counter()
+        proof = prove()
+        torch.cuda.synchronize()
+        prove_s = time.perf_counter() - t0
+    d2h = stats.counts().get("d2h_copies", 0)
+    proof_bytes = to_bytes(proof)
+    gc.collect()  # keep a collection of the prover's garbage out of the verifier's time
+    t0 = time.perf_counter()
+    from_bytes(proof_bytes).verify(Transcript())
+    verify_s = time.perf_counter() - t0
+    counts = launch_counts()
+    return {
+        "proof": proof, "prove_s": prove_s, "verify_s": verify_s, "proof_bytes": len(proof_bytes),
+        "phases_s": dict(phases), "d2h_copies": d2h, "launches": counts,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+    }
+
+
+def pcs_phase(dev, log_sizes) -> None:
+    """PCS prove and verify at each size; the largest is a main path."""
     config = ProverConfig(device=str(dev))
-    results, main_counts = [], None
+    results = []
     for log_n in log_sizes:
         evals, point, output = seeded_claim(log_n, 1000 + log_n, dev)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()  # just before the main path
-        with collect_phases() as phases:
-            t0 = time.perf_counter()
-            proof = PCSProof.prove(point, output, evals, Transcript(), config)
-            torch.cuda.synchronize()
-            prove_s = time.perf_counter() - t0
-        d2h = stats.counts().get("d2h_copies", 0)
-        proof_bytes = pcs_proof_to_bytes(proof)
-        gc.collect()  # keep a collection of the prover's garbage out of the verifier's time
-        t0 = time.perf_counter()
-        pcs_proof_from_bytes(proof_bytes).verify(Transcript())
-        verify_s = time.perf_counter() - t0
-        counts = launch_counts()  # just after
-        idle = [k for k, v in counts.items() if v == 0]
-        if idle:
-            raise RuntimeError(f"log_n={log_n}: kernels never launched on the main path: {idle}")
+        res = timed_prove(lambda: PCSProof.prove(point, output, evals, Transcript(), config),
+                          pcs_proof_to_bytes, pcs_proof_from_bytes)
+        proof = res.pop("proof")
         if len(proof.fri_proof.commitments) != log_n or proof.output != output:
             raise RuntimeError("proof has the wrong shape")
-        results.append({
-            "log_n": log_n, "prove_s": prove_s, "verify_s": verify_s,
-            "proof_bytes": len(proof_bytes), "phases_s": dict(phases),
-            "d2h_copies": d2h, "launches": counts,
-            "peak_device_bytes": torch.cuda.max_memory_allocated(),
-        })
-        main_counts = counts
+        results.append({"log_n": log_n, **res})
+        PATH_LAUNCHES[f"pcs 2^{log_n}"] = res["launches"]
         del proof, evals
         clear_caches()
         torch.cuda.empty_cache()
     emit("pcs", sizes=results)
-    return main_counts
 
 
-def parity_phase(dev) -> bytes:
-    """Proof bytes at log_n = 10: card == CPU plain path == golden digest."""
-    with open(os.path.join(HERE, "multilinear_tpu_torch", "testdata", "pcs_golden.json")) as f:
-        golden = json.load(f)
+def batched_pcs_phase(dev, log_sizes) -> None:
+    """Batched PCS prove and verify of BATCH_POLYS polynomials at each size;
+    the largest is a main path."""
+    config = ProverConfig(device=str(dev))
+    results = []
+    for log_n in log_sizes:
+        polys, claim = seeded_batched_claim(BATCH_POLYS, log_n, 2000 + log_n, dev)
+        res = timed_prove(lambda: BatchedPCSProof.prove(claim, polys, Transcript(), config),
+                          batched_pcs_proof_to_bytes, batched_pcs_proof_from_bytes)
+        proof = res.pop("proof")
+        if (len(proof.fri_proof.commitments) != log_n - 1 or proof.claim.outputs != claim.outputs
+                or len(proof.fri_proof.queries[0].batch_path.values) != 2 * BATCH_POLYS):
+            raise RuntimeError("batched proof has the wrong shape")
+        results.append({"n_polys": BATCH_POLYS, "log_n": log_n, **res})
+        PATH_LAUNCHES[f"batched pcs {BATCH_POLYS} x 2^{log_n}"] = res["launches"]
+        del proof, polys
+        clear_caches()
+        torch.cuda.empty_cache()
+    emit("batched_pcs", sizes=results)
+
+
+def _golden(name: str) -> dict:
+    with open(os.path.join(HERE, "multilinear_tpu_torch", "testdata", name)) as f:
+        return json.load(f)
+
+
+def parity_phase(dev):
+    """Proof bytes on the card == on the CPU's plain path == the golden
+    digest, for the PCS at log_n = 10 and the batched PCS at 10 x 2^8; and
+    card == CPU for PCS proofs of 1, 2 and 3 variables, where the transforms
+    have two rows (the single-stage kernel's only callers) and the whole
+    fold chain is a few elements long.  Returns both golden proofs' bytes."""
+    places = (str(dev), "cpu")
+    golden = _golden("pcs_golden.json")
     vals, point_v = pcs_golden_inputs(golden["log_n"], golden["seed"])
     point = [Fp(v) for v in point_v]
     out = {}
-    for where in (str(dev), "cpu"):
+    for where in places:
         evals = limbs.pack_ints(vals, device=where)
         output = evaluate_evals_host(evals, point)
         if str(output.v) != golden["output"]:
             raise RuntimeError(f"claimed output differs from the fixture on {where}")
         proof = PCSProof.prove(point, output, evals, Transcript(), ProverConfig(device=where))
         out[where] = pcs_proof_to_bytes(proof)
-    card, cpu = out[str(dev)], out["cpu"]
-    digest = hashlib.sha256(card).hexdigest()
-    ok = card == cpu and digest == golden["sha256"]
-    emit("parity", log_n=golden["log_n"], card_equals_cpu=card == cpu, sha256=digest,
-         golden=golden["sha256"], ok=ok)
+    pcs_card, pcs_cpu = out[places[0]], out["cpu"]
+    pcs_digest = hashlib.sha256(pcs_card).hexdigest()
+
+    bgolden = _golden("batched_pcs_golden.json")
+    polys_v, point_v = batched_pcs_golden_inputs(bgolden["n_polys"], bgolden["log_n"], bgolden["seed"])
+    point = [Fp(v) for v in point_v]
+    for where in places:
+        polys = limbs.pack_ints([v for row in polys_v for v in row],
+                                shape=(bgolden["n_polys"], 1 << bgolden["log_n"]), device=where)
+        outputs = [evaluate_evals_host(polys[j], point) for j in range(polys.shape[0])]
+        if [str(o.v) for o in outputs] != bgolden["outputs"]:
+            raise RuntimeError(f"claimed outputs differ from the batched fixture on {where}")
+        proof = BatchedPCSProof.prove(BatchedPCSClaim(point, outputs), polys, Transcript(),
+                                      ProverConfig(device=where))
+        out[where] = batched_pcs_proof_to_bytes(proof)
+    b_card, b_cpu = out[places[0]], out["cpu"]
+    b_digest = hashlib.sha256(b_card).hexdigest()
+
+    reset_counts()
+    tiny = {}
+    for n_vars in (1, 2, 3):
+        rng = np.random.default_rng(3000 + n_vars)
+        vals = [int.from_bytes(rng.bytes(16), "little") % P for _ in range(1 << n_vars)]
+        point = [Fp(int.from_bytes(rng.bytes(16), "little")) for _ in range(n_vars)]
+        for where in places:
+            evals = limbs.pack_ints(vals, device=where)
+            proof = PCSProof.prove(point, evaluate_evals_host(evals, point), evals, Transcript(),
+                                   ProverConfig(device=where))
+            out[where] = pcs_proof_to_bytes(proof)
+        pcs_proof_from_bytes(out[places[0]]).verify(Transcript())
+        tiny[n_vars] = out[places[0]] == out["cpu"]
+    PATH_LAUNCHES["pcs 2^1, 2^2, 2^3"] = launch_counts()
+
+    ok = (pcs_card == pcs_cpu and pcs_digest == golden["sha256"]
+          and b_card == b_cpu and b_digest == bgolden["sha256"] and all(tiny.values()))
+    emit("parity",
+         pcs={"log_n": golden["log_n"], "card_equals_cpu": pcs_card == pcs_cpu, "sha256": pcs_digest,
+              "golden": golden["sha256"]},
+         batched_pcs={"n_polys": bgolden["n_polys"], "log_n": bgolden["log_n"],
+                      "card_equals_cpu": b_card == b_cpu, "sha256": b_digest, "golden": bgolden["sha256"]},
+         tiny_pcs_card_equals_cpu=tiny, ok=ok)
     if not ok:
         raise RuntimeError("proof bytes differ between the card, the CPU path and the fixture")
-    return card
+    return pcs_card, b_card
 
 
-def reject_phase(proof_bytes: bytes) -> None:
-    pcs_proof_from_bytes(proof_bytes).verify(Transcript())
+def reject_phase(kind: str, proof_bytes: bytes, from_bytes) -> None:
+    from_bytes(proof_bytes).verify(Transcript())
     bad = bytearray(proof_bytes)
     bad[len(bad) // 2] ^= 0x01
     try:
-        pcs_proof_from_bytes(bytes(bad)).verify(Transcript())
+        from_bytes(bytes(bad)).verify(Transcript())
     except (FriError, ValueError) as e:
-        emit("reject", raised=type(e).__name__, message=str(e))
+        emit("reject", proof=kind, raised=type(e).__name__, message=str(e))
         return
-    raise RuntimeError("a corrupted proof was accepted")
+    raise RuntimeError(f"a corrupted {kind} proof was accepted")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--log-sizes", default=",".join(map(str, PCS_LOG_SIZES)),
                     help="comma-separated log2 sizes of the PCS phase (default: %(default)s)")
+    ap.add_argument("--batched-log-sizes", default=",".join(map(str, BATCHED_LOG_SIZES)),
+                    help="comma-separated log2 sizes of the batched PCS phase (default: %(default)s)")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one prove at the largest size with torch.profiler")
+                    help="also trace one prove of each main path at its largest size with torch.profiler")
     args = ap.parse_args()
     log_sizes = sorted(int(x) for x in args.log_sizes.split(","))
+    batched_sizes = sorted(int(x) for x in args.batched_log_sizes.split(","))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 2
@@ -529,23 +835,44 @@ def main() -> int:
          max_spill_store_bytes=max([int(s) for s in spills], default=0))
 
     timed = kernels_phase(dev)
-    unfused_phase(dev, log_sizes[-1])
-    counts = pcs_phase(dev, log_sizes)
+    routes_phase(dev, log_sizes[-1])
+    pcs_phase(dev, log_sizes)
+    batched_pcs_phase(dev, batched_sizes)
     if args.profile:
-        profile_phase(dev, log_sizes[-1])
-    proof_bytes = parity_phase(dev)
-    reject_phase(proof_bytes)
+        config = ProverConfig(device=str(dev))
+        evals, point, output = seeded_claim(log_sizes[-1], 1000 + log_sizes[-1], dev)
+        profile_phase(dev, f"pcs 2^{log_sizes[-1]}",
+                      lambda: PCSProof.prove(point, output, evals, Transcript(), config))
+        del evals
+        polys, claim = seeded_batched_claim(BATCH_POLYS, batched_sizes[-1], 2000 + batched_sizes[-1], dev)
+        profile_phase(dev, f"batched pcs {BATCH_POLYS} x 2^{batched_sizes[-1]}",
+                      lambda: BatchedPCSProof.prove(claim, polys, Transcript(), config))
+        del polys
+    pcs_bytes, batched_bytes = parity_phase(dev)
+    reject_phase("pcs", pcs_bytes, pcs_proof_from_bytes)
+    reject_phase("batched_pcs", batched_bytes, batched_pcs_proof_from_bytes)
 
+    # the main paths: the largest PCS prove, the largest batched prove, and
+    # the tiny proves that reach the single-stage butterfly
+    main_paths = [f"pcs 2^{log_sizes[-1]}", f"batched pcs {BATCH_POLYS} x 2^{batched_sizes[-1]}",
+                  "pcs 2^1, 2^2, 2^3"]
     kernels = []
     for name, meta in KERNELS.items():
         row = timed[name]
+        by_path = {path: PATH_LAUNCHES[path][name] for path in main_paths}
         kernels.append({
             "name": name, "route": "cuda", "source": meta["source"], "replaces": meta["replaces"],
-            "launches": counts[name], "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "shapes": row["shapes"],
         })
-    print(json.dumps({"kernels": kernels, "main_path": f"PCS prove+verify, log_n={log_sizes[-1]}"}),
+    idle = [k["name"] for k in kernels if k["launches"] == 0]
+    if idle:
+        raise RuntimeError(f"kernels never launched on a driven path: {idle}")
+    print(json.dumps({"kernels": kernels, "main_paths": main_paths,
+                      "sha256_words_80_words": {k: timed["sha256_words/80"][k] for k in
+                                                ("kernel_ms", "plain_ms", "bound_ms", "bound_by", "shapes")}}),
           flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -46,7 +46,13 @@ KERNELS = {
     "mlt_add": ("addsub", _elementwise),
     "mlt_sub": ("addsub", _elementwise),
     "mlt_sha256_words": ("sha256_words", [_p, _p, _i64, _int, _int, _p]),
-    "mlt_butterfly": ("butterfly", [_p, _p, _p, _p, _i64, _i64, _int, _p]),
+    "mlt_butterfly": ("butterfly", [_p, _p, _p, _p, _i64, _i64, _i64, _i64, _int, _p]),
+    "mlt_butterfly_notw": ("butterfly", [_p, _p, _p, _i64, _i64, _i64, _i64, _int, _p]),
+    "mlt_butterfly2": ("butterfly2", [_p, _p, _p, _i64, _i64, _i64, _int, _i64, _int, _p]),
+    "mlt_twiddle_mul3": ("twiddle_mul3", [_p, _p, _p, _p, _i64, _i64, _i64, _int, _int, _p]),
+    "mlt_kron": ("kron", [_p, _p, _p, _i64, _i64, _int, _p]),
+    "mlt_zm": ("zm", [_p, _i64, _i64, _int, _int, _int, _int, _p]),
+    "mlt_fold": ("fold", [_p, _p, _p, _i64, _i64, _u64, _u64, _int, _p]),
     "mlt_fold_commit": ("fold_commit", [_p, _p, _p, _p, _i64, _i64, _u64, _u64, _int, _p]),
 }
 SOURCES = sorted({stem for stem, _ in KERNELS.values()})

@@ -1,0 +1,192 @@
+"""Batched multilinear PCS: the same claim point for B MLEs, one proof.
+
+Protocol parity with reference src/fri/batched_pcs.rs: the claim
+(inputs then outputs) is absorbed first, batched-FRI init yields
+``fingerprint_r``, the B polynomials are RLC'd EVAL-WISE into one MLE for
+the sumcheck whose target sum is fingerprint(r, outputs), the first FRI
+fold is batched and the rest plain, and the final link is the same
+eq(inputs, randoms) * last_elem check as the plain PCS.
+
+Transcript schedule of round 0 (must match the reference bit-for-bit):
+  absorb(claim); absorb(batch root); fingerprint_r = challenge;
+  absorb(fingerprint_r); absorb(round-0 polynomial); r_0 = challenge;
+  batched fold with r_0; absorb(root_1) (or last_elem when n = 1);
+rounds 1.. are the plain PCS rounds (``pcs.run_round``), and like them each
+leaves its fold's root to the next round's device->host copy.
+
+The B MLEs and their B codewords are ``(B, 2^n, 4)`` / ``(B, 2^(n+1), 4)``
+device tensors; the encode is ONE batched pass through the Moebius and NTT
+kernels, which carry a batch extent.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional
+
+import torch
+
+from .batched_fri import BatchedFriProof, BatchedFriProverData, _fingerprint_codes, fingerprint
+from .config import LOG_BLOWUP, NUM_QUERIES, ProverConfig
+from .field import ops
+from .field.scalar import Fp
+from .fri import FriError, draw_query_indices, encode_mle_for_fri
+from .mle import eq_scalar
+from .pcs import run_round, run_rounds
+from .sumcheck import SumcheckPoly, SumcheckTables
+from .transcript import Transcript
+from .utils import PhaseTimer
+
+
+@dataclass
+class BatchedPCSClaim:
+    """Shared input point + per-polynomial outputs (reference batched_pcs.rs:31-34)."""
+
+    inputs: List[Fp]
+    outputs: List[Fp]
+
+    def absorb_into(self, transcript: Transcript) -> None:
+        for x in self.inputs:
+            transcript.absorb(x.to_bytes())
+        for x in self.outputs:
+            transcript.absorb(x.to_bytes())
+
+
+@dataclass
+class BatchedPCSProof:
+    """Reference BatchedPCSProof (src/fri/batched_pcs.rs:23-29)."""
+
+    fri_proof: BatchedFriProof
+    sumcheck_polynomials: List[SumcheckPoly]
+    claim: BatchedPCSClaim
+
+    @staticmethod
+    def prove(
+        claim: BatchedPCSClaim,
+        polys: torch.Tensor,
+        transcript: Transcript,
+        config: Optional[ProverConfig] = None,
+    ) -> "BatchedPCSProof":
+        """``polys``: (B, 2^n, 4) limb tensor of B MLEs in evaluation form;
+        it is moved to ``config.device`` (default: the card).
+
+        Reference flow: src/fri/batched_pcs.rs:36-186.
+        """
+        session = BatchedPCSProverSession(claim, polys, transcript, config)
+        session.run_rounds()
+        return session.finish()
+
+    def verify(self, transcript: Transcript) -> None:
+        """Reference verify (src/fri/batched_pcs.rs:188-253).  Host-only."""
+        if len(self.fri_proof.queries) != NUM_QUERIES:
+            raise FriError("wrong number of queries")
+        n = len(self.fri_proof.commitments) + 1
+        if n != len(self.sumcheck_polynomials) or n != len(self.claim.inputs):
+            raise FriError("inconsistent proof dimensions")
+        # degree-2 round polynomials, as in the plain PCS
+        if any(len(p.nonzero_coeffs) != 2 for p in self.sumcheck_polynomials):
+            raise FriError("sumcheck round polynomial exceeds degree bound")
+
+        self.claim.absorb_into(transcript)
+        random_elements: List[Fp] = []
+        fingerprint_r = Fp(0)
+        for i, pol in enumerate(self.sumcheck_polynomials):
+            if i == 0:
+                transcript.absorb(self.fri_proof.batch_commitment)
+                fingerprint_r = transcript.next_challenge()
+                transcript.absorb(fingerprint_r.to_bytes())
+            else:
+                transcript.absorb(self.fri_proof.commitments[i - 1])
+            pol.absorb_into(transcript)
+            random_elements.append(transcript.next_challenge())
+        transcript.absorb(self.fri_proof.last_elem.to_bytes())
+
+        # telescoping sumcheck replay from the fingerprinted output sum
+        value = fingerprint(fingerprint_r, self.claim.outputs)
+        for sc_pol, r in zip(self.sumcheck_polynomials, random_elements):
+            value = sc_pol.to_polynomial(value).evaluate(r)
+
+        delta = eq_scalar(self.claim.inputs, random_elements)
+        if delta * self.fri_proof.last_elem != value:
+            raise FriError("batched PCS link check failed")
+
+        self.fri_proof.verify_queries(transcript, random_elements, fingerprint_r)
+
+
+class BatchedPCSProverSession:
+    """Stage-by-stage batched-PCS prover, mirroring ``pcs.PCSProverSession``:
+    construct (encode the B MLEs, commit the batch column tree, draw
+    ``fingerprint_r``, build the tables of the combined MLE, run round 0 with
+    its batched fold), run some or all of rounds 1.., finish (queries).
+    Saving a session to disk and resuming it is a later slice."""
+
+    def __init__(
+        self,
+        claim: BatchedPCSClaim,
+        polys: torch.Tensor,
+        transcript: Transcript,
+        config: Optional[ProverConfig] = None,
+    ):
+        self.config = config or ProverConfig()
+        self.claim = BatchedPCSClaim([Fp(x) for x in claim.inputs], [Fp(x) for x in claim.outputs])
+        self.n_vars = len(self.claim.inputs)
+        if (polys.dim() != 3 or polys.shape[1:] != (1 << self.n_vars, 4) or self.n_vars < 1
+                or polys.shape[0] != len(self.claim.outputs) or polys.shape[0] < 1):
+            raise ValueError(
+                "polys must be a (B, 2^n, 4) limb tensor with n = len(inputs) >= 1 and "
+                f"B = len(outputs) >= 1, got {tuple(polys.shape)}"
+            )
+        self.transcript = transcript
+        polys = polys.to(self.config.device).contiguous()
+        debug = self.config.debug_checks
+        if debug and not ops.is_canonical(polys):
+            raise ValueError("non-canonical field element in polys")
+
+        pt = PhaseTimer(self.config.device)
+        # RS-encode every polynomial in one batched pass (coeffs
+        # bit-reversed, Q8)
+        codes = encode_mle_for_fri(polys)
+        pt.mark("encode")
+        self.claim.absorb_into(transcript)
+        self.bfri = BatchedFriProverData.init(codes, transcript, debug_checks=debug)
+        del codes
+        pt.mark("commit_batch")
+        # eval-wise Horner RLC of the B MLEs into one sumcheck polynomial
+        rlc_evals = _fingerprint_codes(polys, self.bfri.fingerprint_r)
+        self.tables = SumcheckTables.for_pcs(self.claim.inputs, rlc_evals, debug_checks=debug)
+        pt.mark("tables")
+        self.previous_sum = fingerprint(self.bfri.fingerprint_r, self.claim.outputs)
+        self.pols: List[SumcheckPoly] = []
+
+        # round 0: the batched fold, which draws on the batch layer exactly
+        # once.  No fold tree exists yet, so its copy carries the sums only;
+        # its own tree's root is left to round 1's copy.
+        pol, self.previous_sum = run_round(
+            self.tables, self.bfri.fri_data,
+            lambda k, r, t: self.bfri.batched_fold_step(r, t), 0,
+            self.n_vars == 1, self.previous_sum, transcript,
+        )
+        self.pols.append(pol)
+        self.k = 1
+        pt.mark("rounds")
+
+    def run_rounds(self, max_rounds: Optional[int] = None) -> int:
+        """Run up to ``max_rounds`` of rounds 1..; returns rounds done."""
+        return run_rounds(self, self.bfri.fri_data, max_rounds)
+
+    def finish(self) -> "BatchedPCSProof":
+        if self.k != self.n_vars or self.bfri.fri_data.last_element is None:
+            raise RuntimeError("finish() before all rounds ran")
+        pt = PhaseTimer(self.config.device)
+        domain_size = 1 << (self.n_vars + LOG_BLOWUP)
+        indices = draw_query_indices(self.transcript, domain_size // 2, NUM_QUERIES)
+        queries = self.bfri.open_queries(indices)
+        pt.mark("queries")
+        fri_proof = BatchedFriProof(
+            batch_commitment=self.bfri.batch_tree.root_bytes(),
+            commitments=self.bfri.fri_data.fold_roots(),
+            queries=queries,
+            last_elem=self.bfri.fri_data.last_element,
+            last_random=self.transcript.random(),
+        )
+        return BatchedPCSProof(fri_proof, self.pols, self.claim)

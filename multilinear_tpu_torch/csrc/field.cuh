@@ -10,6 +10,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 typedef unsigned long long u64;
 typedef unsigned int u32;
 

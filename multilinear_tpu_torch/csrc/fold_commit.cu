@@ -16,18 +16,8 @@
 // it folds both elements of its pair, writes them, and hashes the 32-byte
 // message while both are still in registers, so the folded codeword is not
 // read back from device memory for the leaf level.
-#include "field.cuh"
+#include "fold.cuh"
 #include "sha256.cuh"
-
-__device__ __forceinline__ fp fold_one(const void* code, const void* tw, long long j,
-                                       long long h, long long stride, fp rh) {
-  fp a = fp_load(code, j);
-  fp b = fp_load(code, j + h);
-  fp t = fp_load(tw, j * stride);
-  fp even = fp_half(fp_add(a, b));
-  fp odd = fp_mul(fp_mul(fp_sub(a, b), t), rh);
-  return fp_add(even, odd);
-}
 
 __global__ void fold_commit_kernel(const void* __restrict__ code, const void* __restrict__ tw,
                                    void* __restrict__ nxt, u32* __restrict__ digs,
@@ -63,9 +53,7 @@ __global__ void fold_commit_kernel(const void* __restrict__ code, const void* __
 extern "C" int mlt_fold_commit(const void* code, const void* tw, void* nxt, void* digs,
                                long long m, long long stride, unsigned long long rh_lo,
                                unsigned long long rh_hi, int device, cudaStream_t stream) {
-  int cur = -1;
-  cudaGetDevice(&cur);
-  if (cur != device) cudaSetDevice(device);
+  device_guard guard(device);
   const int threads = 128;
   long long q = m / 4;
   unsigned blocks = (unsigned)((q + threads - 1) / threads);
@@ -74,7 +62,5 @@ extern "C" int mlt_fold_commit(const void* code, const void* tw, void* nxt, void
   rh.hi = rh_hi;
   fold_commit_kernel<<<blocks, threads, 0, stream>>>(code, tw, nxt, static_cast<u32*>(digs), m,
                                                      stride, rh);
-  int rc = (int)cudaGetLastError();
-  if (cur != device && cur >= 0) cudaSetDevice(cur);
-  return rc;
+  return (int)cudaGetLastError();
 }

@@ -12,8 +12,12 @@
 // operations; a 32-byte pair leaf (n_words = 8) runs one.  At the card's
 // int32 rate the operations take several times longer than the bytes, so
 // the kernel is operation-bound: the rounds are fully unrolled with the
-// message schedule in registers, and the widths the Merkle tree uses (8 and
-// 16 words) are compile-time constants so that the padding folds away.
+// message schedule in registers, and the widths the Merkle trees of single
+// codewords use (8 and 16 words) are compile-time constants so that the
+// padding folds away.  Any other width - the batch tree's 80-word leaves,
+// 2 * 10 field elements - takes the run-time branch: scalar loads a whole
+// message apart across threads, six compressions.
+#include "launch.cuh"
 #include "sha256.cuh"
 
 template <int NW>
@@ -61,9 +65,7 @@ __global__ void sha256_words_kernel(const u32* __restrict__ msg, u32* __restrict
 
 extern "C" int mlt_sha256_words(const void* msg, void* out, long long n, int n_words,
                                 int device, cudaStream_t stream) {
-  int cur = -1;
-  cudaGetDevice(&cur);
-  if (cur != device) cudaSetDevice(device);
+  device_guard guard(device);
   const int threads = 128;
   unsigned blocks = (unsigned)((n + threads - 1) / threads);
   const u32* m = static_cast<const u32*>(msg);
@@ -74,7 +76,5 @@ extern "C" int mlt_sha256_words(const void* msg, void* out, long long n, int n_w
     sha256_words_kernel<16><<<blocks, threads, 0, stream>>>(m, o, n, n_words);
   else
     sha256_words_kernel<0><<<blocks, threads, 0, stream>>>(m, o, n, n_words);
-  int rc = (int)cudaGetLastError();
-  if (cur != device && cur >= 0) cudaSetDevice(cur);
-  return rc;
+  return (int)cudaGetLastError();
 }

@@ -43,15 +43,11 @@ template <int OP>
 static int launch_elementwise(const void* a, const void* b, void* out, long long n, long long d1,
                               long long d2, const long long* st, int device,
                               cudaStream_t stream) {
-  int cur = -1;
-  cudaGetDevice(&cur);
-  if (cur != device) cudaSetDevice(device);
+  device_guard guard(device);
   strides3 sa = {st[0], st[1], st[2]}, sb = {st[3], st[4], st[5]}, so = {st[6], st[7], st[8]};
   const int threads = 256;
   unsigned blocks = (unsigned)((n + threads - 1) / threads);
   elementwise_kernel<OP><<<blocks, threads, 0, stream>>>(a, b, out, (unsigned)n, (unsigned)d1,
                                                          (unsigned)d2, sa, sb, so);
-  int rc = (int)cudaGetLastError();
-  if (cur != device && cur >= 0) cudaSetDevice(cur);
-  return rc;
+  return (int)cudaGetLastError();
 }

@@ -12,7 +12,18 @@ Kernels (sources under ``csrc/``):
 * ``mul``                - a*b mod p elementwise            (csrc/mul.cu)
 * ``add``, ``sub``       - a+-b mod p elementwise           (csrc/addsub.cu)
 * ``butterfly``          - one Pease radix-2 NTT stage      (csrc/butterfly.cu)
+* ``butterfly_notw``     - the twiddle-free last stage      (csrc/butterfly.cu)
+* ``butterfly2``         - two Pease stages in one pass     (csrc/butterfly2.cu)
+* ``twiddle_mul3``       - four-step twiddle, one pass      (csrc/twiddle_mul3.cu)
+* ``kron_mul``           - tensor product of two vectors    (csrc/kron.cu)
+* ``zm_butterfly``       - zeta / Moebius, many bits a pass (csrc/zm.cu)
+* ``fold_codeword``      - FRI fold                         (csrc/fold.cu)
 * ``fold_commit_leaves`` - FRI fold + pair-leaf SHA-256     (csrc/fold_commit.cu)
+
+``mul``, ``add`` and ``sub`` index elements with 32 bits; every other kernel
+indexes with 64 bits and launches one thread per element (or per group of
+elements) in blocks of 256, so its wrapper raises above ``_MAX_ELEMENTS``
+threads as well.
 """
 
 from __future__ import annotations
@@ -25,7 +36,11 @@ import torch
 from . import ops
 from .scalar import P
 
-_LAUNCHES = {"mul": 0, "add": 0, "sub": 0, "butterfly": 0, "fold_commit_leaves": 0}
+_LAUNCHES = {
+    "mul": 0, "add": 0, "sub": 0, "butterfly": 0, "butterfly_notw": 0, "butterfly2": 0,
+    "twiddle_mul3": 0, "kron_mul": 0, "zm_butterfly": 0, "fold_codeword": 0,
+    "fold_commit_leaves": 0,
+}
 
 
 def launch_counts() -> dict:
@@ -70,6 +85,11 @@ def _launch(kernel: str, symbol: str, device: torch.device, *args) -> None:
 # ---------------------------------------------------------------------------
 
 _MAX_ELEMENTS = (1 << 32) - 1024  # the kernels index elements with 32 bits
+
+
+def _check_count(kernel: str, n: int) -> None:
+    if n > _MAX_ELEMENTS:
+        raise ValueError(f"{kernel}: {n} threads exceed the launch's 32-bit block count")
 
 
 def _element_strides(t: torch.Tensor):
@@ -182,46 +202,296 @@ def sub(a: torch.Tensor, b: torch.Tensor, out: Optional[torch.Tensor] = None) ->
 
 
 # ---------------------------------------------------------------------------
-# butterfly: one Pease DIF stage
+# butterfly, butterfly_notw: one Pease DIF stage
 # ---------------------------------------------------------------------------
+
+
+def _row_batches(name: str, t: torch.Tensor):
+    """(batch, H, C, batch stride in elements) of an (H, C, 4) or
+    (batch, H, C, 4) field tensor whose batch entries are each contiguous -
+    the row halves of a contiguous (batch, 2H, C, 4) tensor qualify."""
+    _check_field(name, t, contiguous=False)
+    if t.dim() == 3:
+        t = t.unsqueeze(0)
+    if t.dim() != 4:
+        raise ValueError(f"{name}: expected (H, C, 4) or (batch, H, C, 4), got {tuple(t.shape)}")
+    batch, H, C, _ = t.shape
+    st = t.stride()
+    inner_ok = t.numel() == 0 or (st[3] == 1 and st[2] == 4 and (H == 1 or st[1] == 4 * C))
+    if not inner_ok or (batch > 1 and st[0] % 4) or t.data_ptr() % 16:
+        raise ValueError(f"{name}: each batch entry must be contiguous and 16-byte aligned")
+    return batch, H, C, (st[0] // 4 if batch > 1 else H * C)
+
+
+def _stage_args(kernel: str, u: torch.Tensor, v: torch.Tensor):
+    batch, H, C, stride = _row_batches(f"{kernel}: u", u)
+    if v.shape != u.shape or v.device != u.device or _row_batches(f"{kernel}: v", v)[3] != stride:
+        raise ValueError(
+            f"{kernel}: v must match u in shape, device and batch stride, got "
+            f"{tuple(u.shape)} and {tuple(v.shape)}"
+        )
+    out = torch.empty(u.shape[:-2] + (2, C, 4), dtype=torch.int32, device=u.device)
+    _check_count(kernel, batch * H * C)
+    return batch, H, C, stride, out
 
 
 def butterfly_plain(u: torch.Tensor, v: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
     p = ops.add_plain(u, v)
     q = mul_plain(ops.sub_plain(u, v), tw.unsqueeze(1))
-    return torch.stack([p, q], dim=1)
+    return torch.stack([p, q], dim=-3)
 
 
 def butterfly(u: torch.Tensor, v: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
-    """One constant-geometry radix-2 stage.  u, v: (H, C, 4); tw: (H, 4),
-    one twiddle per row.  Returns (H, 2, C, 4) with
-    out[i, 0] = u[i] + v[i] and out[i, 1] = (u[i] - v[i]) * tw[i]."""
-    _check_field("butterfly: u", u)
-    _check_field("butterfly: v", v, device=u.device)
+    """One constant-geometry radix-2 stage.  u, v: (H, C, 4) or
+    (batch, H, C, 4); tw: (H, 4), one twiddle per row.  Returns
+    (..., H, 2, C, 4) with out[i, 0] = u[i] + v[i] and
+    out[i, 1] = (u[i] - v[i]) * tw[i]."""
+    batch, H, C, stride, out = _stage_args("butterfly", u, v)
     _check_field("butterfly: tw", tw, device=u.device)
-    if u.dim() != 3 or v.shape != u.shape or tw.shape != (u.shape[0], 4):
-        raise ValueError(
-            f"butterfly: expected u, v (H, C, 4) and tw (H, 4), got "
-            f"{tuple(u.shape)}, {tuple(v.shape)}, {tuple(tw.shape)}"
-        )
+    if tw.shape != (H, 4):
+        raise ValueError(f"butterfly: expected tw ({H}, 4), got {tuple(tw.shape)}")
     if u.device.type == "cpu":
         return butterfly_plain(u, v, tw)
-    H, C = u.shape[0], u.shape[1]
-    out = torch.empty((H, 2, C, 4), dtype=torch.int32, device=u.device)
-    if H * C:
+    if batch * H * C:
         _launch(
             "butterfly", "mlt_butterfly", u.device,
-            u.data_ptr(), v.data_ptr(), tw.data_ptr(), out.data_ptr(), H, C,
+            u.data_ptr(), v.data_ptr(), tw.data_ptr(), out.data_ptr(), batch, H, C, stride,
+        )
+    return out
+
+
+def butterfly_notw_plain(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return torch.stack([ops.add_plain(u, v), ops.sub_plain(u, v)], dim=-3)
+
+
+def butterfly_notw(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The last stage of a transform, whose twiddles are all 1: shapes as
+    :func:`butterfly`, out[i, 0] = u[i] + v[i], out[i, 1] = u[i] - v[i]."""
+    batch, H, C, stride, out = _stage_args("butterfly_notw", u, v)
+    if u.device.type == "cpu":
+        return butterfly_notw_plain(u, v)
+    if batch * H * C:
+        _launch(
+            "butterfly_notw", "mlt_butterfly_notw", u.device,
+            u.data_ptr(), v.data_ptr(), out.data_ptr(), batch, H, C, stride,
         )
     return out
 
 
 # ---------------------------------------------------------------------------
-# fold_commit_leaves: FRI fold + SHA-256 of the pair leaves
+# butterfly2: two Pease DIF stages in one pass
 # ---------------------------------------------------------------------------
 
 
-def _fold_plain(code, tw_table, tw_stride: int, rh: int) -> torch.Tensor:
+def stage_exp(s: int, r, half: int):
+    """Twiddle exponent of row ``r`` (an int or an index tensor) in stage
+    ``s`` of a Pease transform over 2*half rows."""
+    return ((r >> s) & ((half - 1) >> s)) << s
+
+
+def butterfly2_plain(x: torch.Tensor, pows: torch.Tensor, ps: int) -> torch.Tensor:
+    M = x.shape[-3]
+    Q, half = M // 4, M // 2
+    i = torch.arange(Q, dtype=torch.int64, device=x.device)
+    ta, tb, tc, td = (
+        pows[stage_exp(s, r, half)].unsqueeze(1)
+        for s, r in ((2 * ps, i), (2 * ps, i + Q), (2 * ps + 1, 2 * i), (2 * ps + 1, 2 * i + 1))
+    )
+    x0, x1, x2, x3 = (x[..., k * Q : (k + 1) * Q, :, :] for k in range(4))
+    A, C = ops.add_plain(x0, x2), ops.add_plain(x1, x3)
+    Bta = mul_plain(ops.sub_plain(x0, x2), ta)
+    Dtb = mul_plain(ops.sub_plain(x1, x3), tb)
+    z = [
+        ops.add_plain(A, C), mul_plain(ops.sub_plain(A, C), tc),
+        ops.add_plain(Bta, Dtb), mul_plain(ops.sub_plain(Bta, Dtb), td),
+    ]
+    return torch.stack(z, dim=-3).reshape(x.shape)
+
+
+def butterfly2(x: torch.Tensor, pows: torch.Tensor, ps: int) -> torch.Tensor:
+    """Stages 2*ps and 2*ps+1 of the Pease transform along the row axis of
+    x, (M, C, 4) or (batch, M, C, 4) with M a power of two >= 4, in one pass:
+    the same values as two :func:`butterfly` stages.  ``pows``: (>= M/2, 4)
+    first-half powers of the M-domain root, possibly a strided view of a
+    longer table; the kernel computes each row's four twiddle exponents
+    itself and reads them from it."""
+    _check_field("butterfly2: x", x)
+    _check_field("butterfly2: pows", pows, device=x.device, contiguous=False)
+    if x.dim() not in (3, 4) or pows.dim() != 2:
+        raise ValueError(f"butterfly2: bad shapes {tuple(x.shape)}, {tuple(pows.shape)}")
+    M, C = x.shape[-3], x.shape[-2]
+    batch = x.shape[0] if x.dim() == 4 else 1
+    log_m = M.bit_length() - 1
+    if M < 4 or 1 << log_m != M or not 0 <= 2 * ps + 1 < log_m:
+        raise ValueError(f"butterfly2: M = {M} rows have no stages {2 * ps}, {2 * ps + 1}")
+    strides = _element_strides(pows)
+    if pows.shape[0] < M // 2 or strides is None:
+        raise ValueError("butterfly2: pows must hold M/2 whole 16-byte-aligned elements")
+    if x.device.type == "cpu":
+        return butterfly2_plain(x, pows, ps)
+    out = torch.empty_like(x)
+    n = batch * (M // 4) * C
+    _check_count("butterfly2", n)
+    if n:
+        _launch(
+            "butterfly2", "mlt_butterfly2", x.device,
+            x.data_ptr(), pows.data_ptr(), out.data_ptr(), batch, M, C, ps, strides[0],
+        )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# twiddle_mul3: the twiddle step of the four-step transform
+# ---------------------------------------------------------------------------
+
+
+def twiddle_mul3_plain(F: torch.Tensor, Tc: torch.Tensor, Tf: torch.Tensor) -> torch.Tensor:
+    A, B = F.shape[-3], F.shape[-2]
+    S = Tf.shape[0]
+    Fr = F.reshape(F.shape[:-3] + (A // S, S, B, 4))
+    return mul_plain(mul_plain(Fr, Tc.unsqueeze(1)), Tf).reshape(F.shape)
+
+
+def twiddle_mul3(F: torch.Tensor, Tc: torch.Tensor, Tf: torch.Tensor) -> torch.Tensor:
+    """G[a, b] = F[a, b] * Tc[a // S, b] * Tf[a % S, b] in one pass.  F:
+    (A, B, 4) or (batch, A, B, 4); Tc: (A/S, B, 4); Tf: (S, B, 4), S a power
+    of two (``ntt._twiddle_factors``)."""
+    _check_field("twiddle_mul3: F", F)
+    _check_field("twiddle_mul3: Tc", Tc, device=F.device)
+    _check_field("twiddle_mul3: Tf", Tf, device=F.device)
+    if F.dim() not in (3, 4) or Tc.dim() != 3 or Tf.dim() != 3:
+        raise ValueError("twiddle_mul3: expected F (A, B, 4) or (batch, A, B, 4) and 3-d factors")
+    A, B = F.shape[-3], F.shape[-2]
+    S = Tf.shape[0]
+    if S < 1 or S & (S - 1) or A % S or Tf.shape != (S, B, 4) or Tc.shape != (A // S, B, 4):
+        raise ValueError(
+            f"twiddle_mul3: factors {tuple(Tc.shape)}, {tuple(Tf.shape)} do not fit F {tuple(F.shape)}"
+        )
+    if F.device.type == "cpu":
+        return twiddle_mul3_plain(F, Tc, Tf)
+    out = torch.empty_like(F)
+    batch = F.shape[0] if F.dim() == 4 else 1
+    _check_count("twiddle_mul3", batch * A * B)
+    if batch * A * B:
+        _launch(
+            "twiddle_mul3", "mlt_twiddle_mul3", F.device,
+            F.data_ptr(), Tc.data_ptr(), Tf.data_ptr(), out.data_ptr(), batch, A, B,
+            S.bit_length() - 1,
+        )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# kron_mul: tensor product
+# ---------------------------------------------------------------------------
+
+
+def kron_mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    n = b.shape[0]
+    return mul_plain(a.unsqueeze(-2), b).reshape(a.shape[:-2] + (a.shape[-2] * n, 4))
+
+
+def kron_mul(a: torch.Tensor, b: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """out[..., i * n + j] = a[..., i] * b[j].  a: (m, 4) or (batch, m, 4);
+    b: (n, 4); returns (..., m * n, 4), written into ``out`` when given (a
+    contiguous tensor of that shape)."""
+    _check_field("kron_mul: a", a)
+    _check_field("kron_mul: b", b, device=a.device)
+    if a.dim() not in (2, 3) or b.dim() != 2:
+        raise ValueError(f"kron_mul: bad shapes {tuple(a.shape)}, {tuple(b.shape)}")
+    m, n = a.numel() // 4, b.shape[0]
+    shape = a.shape[:-2] + (a.shape[-2] * n, 4)
+    if out is not None:
+        _check_field("kron_mul: out", out, device=a.device)
+        if out.shape != shape:
+            raise ValueError(f"kron_mul: out has shape {tuple(out.shape)}, expected {tuple(shape)}")
+    if a.device.type == "cpu":
+        res = kron_mul_plain(a, b)
+        if out is None:
+            return res
+        out.copy_(res)
+        return out
+    if out is None:
+        out = torch.empty(shape, dtype=torch.int32, device=a.device)
+    _check_count("kron_mul", m * n)
+    if m * n:
+        _launch("kron_mul", "mlt_kron", a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# zm_butterfly: zeta / Moebius transform, many index bits per pass
+# ---------------------------------------------------------------------------
+
+_ZM_TILE_BITS = 11  # the kernel's shared-memory tile: 2^11 elements, 32 KiB
+_ZM_HIGH_BITS = 9  # bits per pass above the first: 2^9 rows of >= 4 elements
+
+
+def zm_passes(bits: int):
+    """The (first bit, bit count, log2 tile width) of each kernel pass of a
+    transform over ``bits`` index bits: the low 11 bits as tiles of
+    consecutive elements, then up to 9 bits a pass as tiles of 2^c rows by
+    2^(11-c) adjacent elements."""
+    passes, d = [], 0
+    while d < bits:
+        c = min(_ZM_HIGH_BITS if d else _ZM_TILE_BITS, bits - d)
+        passes.append((d, c, _ZM_TILE_BITS - c if d else 0))
+        d += c
+    return passes
+
+
+def zm_butterfly_plain(x: torch.Tensor, add: bool) -> torch.Tensor:
+    n = x.shape[-2]
+    op = ops.add_plain if add else ops.sub_plain
+    x = x.clone()
+    lead = x.shape[:-2]
+    for i in range(n.bit_length() - 1):
+        w = x.view(lead + (n >> (i + 1), 2, 1 << i, 4))
+        w[..., 1, :, :] = op(w[..., 1, :, :], w[..., 0, :, :])
+    return x
+
+
+def zm_butterfly(x: torch.Tensor, add: bool) -> torch.Tensor:
+    """hi <- hi + lo (``add``: zeta transform) or hi <- hi - lo (Moebius
+    transform) for EVERY bit of the value index of x, (n, 4) or
+    (batch, n, 4) with n a power of two.  Returns a new tensor."""
+    _check_field("zm_butterfly: x", x)
+    if x.dim() not in (2, 3):
+        raise ValueError(f"zm_butterfly: expected (n, 4) or (batch, n, 4), got {tuple(x.shape)}")
+    n = x.shape[-2]
+    bits = n.bit_length() - 1
+    if n < 1 or 1 << bits != n:
+        raise ValueError("zm_butterfly: size must be a power of two")
+    if x.device.type == "cpu":
+        return zm_butterfly_plain(x, add)
+    total = x.numel() // 4
+    _check_count("zm_butterfly", total)
+    x = x.clone()
+    for d, c, log_w in zm_passes(bits) if total else ():
+        _launch("zm_butterfly", "mlt_zm", x.device, x.data_ptr(), total, 1 << d, c, log_w, int(add))
+    return x
+
+
+# ---------------------------------------------------------------------------
+# fold_codeword, fold_commit_leaves: the FRI fold, alone and fused with the
+# SHA-256 of the pair leaves
+# ---------------------------------------------------------------------------
+
+
+def _check_fold(kernel: str, code, tw_table, tw_stride: int, rh: int, multiple: int) -> None:
+    _check_field(f"{kernel}: code", code)
+    _check_field(f"{kernel}: tw_table", tw_table, device=code.device)
+    m = code.shape[0]
+    if code.dim() != 2 or tw_table.dim() != 2 or m < multiple or m % multiple:
+        raise ValueError(f"{kernel}: bad shapes {tuple(code.shape)}, {tuple(tw_table.shape)}")
+    if tw_stride < 1 or (m // 2 - 1) * tw_stride >= tw_table.shape[0]:
+        raise ValueError(f"{kernel}: twiddle table too short for this stride")
+    if not 0 <= rh < P:
+        raise ValueError(f"{kernel}: rh must be a canonical residue")
+    _check_count(kernel, m // 2)
+
+
+def fold_codeword_plain(code, tw_table, tw_stride: int, rh: int) -> torch.Tensor:
     from . import limbs
 
     half = code.shape[0] // 2
@@ -233,11 +503,31 @@ def _fold_plain(code, tw_table, tw_stride: int, rh: int) -> torch.Tensor:
     return ops.add_plain(even, mul_plain(rhl, odd))
 
 
+def fold_codeword(code: torch.Tensor, tw_table: torch.Tensor, tw_stride: int, rh: int) -> torch.Tensor:
+    """One FRI fold: code (m, 4), m even -> (m/2, 4),
+
+        nxt[i] = half(a+b) + (a-b) * tw[i] * rh,  a = code[i], b = code[i+m/2]
+
+    with ``tw_table``, ``tw_stride`` and ``rh`` as in
+    :func:`fold_commit_leaves`."""
+    _check_fold("fold_codeword", code, tw_table, tw_stride, rh, 2)
+    if code.device.type == "cpu":
+        return fold_codeword_plain(code, tw_table, tw_stride, rh)
+    m = code.shape[0]
+    nxt = torch.empty((m // 2, 4), dtype=torch.int32, device=code.device)
+    _launch(
+        "fold_codeword", "mlt_fold", code.device,
+        code.data_ptr(), tw_table.data_ptr(), nxt.data_ptr(),
+        m, tw_stride, rh & 0xFFFFFFFFFFFFFFFF, rh >> 64,
+    )
+    return nxt
+
+
 def fold_commit_leaves_plain(code, tw_table, tw_stride: int, rh: int):
     from ..sha256 import limbs_to_words
     from ..sha256_cuda import sha256_words_plain
 
-    nxt = _fold_plain(code, tw_table, tw_stride, rh)
+    nxt = fold_codeword_plain(code, tw_table, tw_stride, rh)
     q = nxt.shape[0] // 2
     msg = torch.cat([limbs_to_words(nxt[:q]), limbs_to_words(nxt[q:])], dim=-1)
     return nxt, sha256_words_plain(msg)
@@ -256,17 +546,10 @@ def fold_commit_leaves(code: torch.Tensor, tw_table: torch.Tensor, tw_stride: in
 
     as ((m/2, 4) int32, (m/4, 8) int32 big-endian digest words).
     """
-    _check_field("fold_commit_leaves: code", code)
-    _check_field("fold_commit_leaves: tw_table", tw_table, device=code.device)
-    m = code.shape[0]
-    if code.dim() != 2 or tw_table.dim() != 2 or m < 4 or m % 4:
-        raise ValueError(f"fold_commit_leaves: bad shapes {tuple(code.shape)}, {tuple(tw_table.shape)}")
-    if tw_stride < 1 or (m // 2 - 1) * tw_stride >= tw_table.shape[0]:
-        raise ValueError("fold_commit_leaves: twiddle table too short for this stride")
-    if not 0 <= rh < P:
-        raise ValueError("fold_commit_leaves: rh must be a canonical residue")
+    _check_fold("fold_commit_leaves", code, tw_table, tw_stride, rh, 4)
     if code.device.type == "cpu":
         return fold_commit_leaves_plain(code, tw_table, tw_stride, rh)
+    m = code.shape[0]
     nxt = torch.empty((m // 2, 4), dtype=torch.int32, device=code.device)
     digs = torch.empty((m // 4, 8), dtype=torch.int32, device=code.device)
     _launch(

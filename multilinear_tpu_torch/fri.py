@@ -7,15 +7,13 @@ absorbed per layer, 128 transcript-drawn query indices with 8-LE-byte
 absorption (quirk Q5), and the redundant ``last_random`` transcript
 fingerprint checked at the end.
 
-Every fold step is one launch of the fused ``fold_commit_leaves`` kernel
-(fold + leaf hashes) followed by one ``sha256_words`` launch per tree level.
-The codeword stays on the device down to its last two elements: the kernels
-mask their own ragged edge, so there is no host tail.  Queries gather all
-128 openings of all layers in one device->host copy.
-
-Still to port here: the JAX package's standalone fold kernel
-(``fold_codeword``); every fold of this module goes through the fused
-kernel.
+Every fold step that commits is one launch of the fused
+``fold_commit_leaves`` kernel (fold + leaf hashes) followed by one
+``sha256_words`` launch per tree level; the last fold of a chain, which
+commits nothing, is one launch of ``fold_codeword``.  The codeword stays on
+the device down to its last two elements: the kernels mask their own ragged
+edge, so there is no host tail.  Queries gather all 128 openings of all
+layers in one device->host copy.
 """
 
 from __future__ import annotations
@@ -49,10 +47,17 @@ def _rh_scalar(r: Fp) -> int:
     return (Fp(r) * TWO_INV).v
 
 
+def _fold_codeword(code: torch.Tensor, inv_pows: torch.Tensor, k: int, r: Fp) -> torch.Tensor:
+    """Fold ``code`` (m, 4) with challenge r at FRI round k: (m/2, 4)."""
+    stats.bump("fri_folds_plain")
+    return cuda_ops.fold_codeword(code, inv_pows, 1 << k, _rh_scalar(r))
+
+
 def _fold_and_commit(code: torch.Tensor, inv_pows: torch.Tensor, k: int, r: Fp):
     """Fold ``code`` (m, 4) with challenge r at FRI round k and hash every
     Merkle level of the result.  Returns (folded (m/2, 4), layers) with the
     leaf-digest level first; the pair leaves are (nxt[i], nxt[i + m/4])."""
+    stats.bump("fri_folds_fused")
     nxt, leaf = cuda_ops.fold_commit_leaves(code, inv_pows, 1 << k, _rh_scalar(r))
     return nxt, [leaf] + tree_levels(leaf)
 
@@ -114,22 +119,29 @@ class FriProverData:
         if m <= blowup:
             return
         inv_pows = inv_gen_pows(self._log_domain, code.device)
+        if m // 2 == blowup:
+            self._finish(_fold_codeword(code, inv_pows, k, r), transcript)
+            return
         nxt, layers = _fold_and_commit(code, inv_pows, k, r)
         self._guard(nxt, "folded codeword")
         self._current = nxt
-        if m // 2 == blowup:
-            vals = limbs.unpack_ints(stats.fetch(nxt))
-            first = Fp(int(vals[0]))
-            if not all(int(v) == first.v for v in vals):
-                raise FriError("not an RS code")
-            self.last_element = first
-            if transcript is not None:
-                transcript.absorb(first.to_bytes())
-            return
         tree = MerkleTree(layers, _pair_view(nxt))
         self.trees.append(tree)
         if transcript is not None:
             transcript.absorb(tree.root_bytes())
+
+    def _finish(self, nxt: torch.Tensor, transcript: Optional[Transcript]) -> None:
+        """The end of a fold chain: ``nxt`` holds ``2^LOG_BLOWUP`` elements,
+        which must all be equal; set ``last_element`` and absorb it."""
+        self._guard(nxt, "folded codeword")
+        self._current = nxt
+        vals = limbs.unpack_ints(stats.fetch(nxt))
+        first = Fp(int(vals[0]))
+        if not all(int(v) == first.v for v in vals):
+            raise FriError("not an RS code")
+        self.last_element = first
+        if transcript is not None:
+            transcript.absorb(first.to_bytes())
 
     @staticmethod
     def fold(code: torch.Tensor, transcript: Transcript) -> "FriProverData":
@@ -150,21 +162,23 @@ class FriProverData:
                 t.set_root_words(w)
         return [t.root_bytes() for t in self.trees]
 
-    def open_queries(self, indices: Sequence[int]) -> List["QueryProof"]:
-        """Open many query indices at once: the gathers of all layers come
-        back in ONE device->host copy.
-
-        Per-query index halves each layer (reference open_query_at,
-        src/fri/mod.rs:154-174: current_index %= current_n after halving).
-        """
+    def layer_indices(self, indices: Sequence[int]) -> List[List[int]]:
+        """The leaf index of each query in each layer's tree: the index
+        halves per layer (reference open_query_at, src/fri/mod.rs:154-174:
+        current_index %= current_n after halving)."""
         idx_per_tree = []
         cur = list(indices)
-        cur_n = self.trees[0].num_leaves
+        cur_n = self.trees[0].num_leaves if self.trees else 0
         for _ in self.trees:
             idx_per_tree.append(cur)
             cur_n //= 2
             cur = [c % max(cur_n, 1) for c in cur]
-        paths = MerkleTree.open_batch_many(self.trees, idx_per_tree)
+        return idx_per_tree
+
+    def open_queries(self, indices: Sequence[int]) -> List["QueryProof"]:
+        """Open many query indices at once: the gathers of all layers come
+        back in ONE device->host copy."""
+        paths = MerkleTree.open_batch_many(self.trees, self.layer_indices(indices))
         return [
             QueryProof([paths[l][q] for l in range(len(self.trees))])
             for q in range(len(indices))
@@ -311,7 +325,8 @@ class FriProof:
 
 
 def encode_mle_for_fri(evals: torch.Tensor) -> torch.Tensor:
-    """eval form -> bit-reversed coefficient form -> RS codeword.
+    """eval form -> bit-reversed coefficient form -> RS codeword, for one
+    (2^n, 4) MLE or a (B, 2^n, 4) batch in one pass.
 
     The coefficient bit-reversal aligns FRI's even/odd low-bit split with
     sumcheck's MSB top/bottom-half fold (reference

@@ -13,10 +13,9 @@ A multilinear polynomial in n variables is a ``(2^n, 4)`` field tensor
 Variable order is big-endian (quirk Q8): the FIRST variable corresponds to
 the MOST significant bit of the hypercube index.
 
-Still to port here: the JAX package's fused multi-bit zeta/Moebius kernel
-(``zm_butterfly_axis2``) and its tensor-product kernel (``kron_mul``); this
-module takes the unfused routes - per-bit ``ops.add``/``ops.sub`` passes and
-broadcast + ``ops.mul``.
+Both transforms run through the ``zm_butterfly`` kernel (many index bits per
+pass) and the tensor products through ``kron_mul``; the transforms and
+``bit_reverse`` also take a leading batch dimension, ``(B, 2^n, 4)``.
 """
 
 from __future__ import annotations
@@ -24,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .field import limbs, ops
+from .field import cuda_ops, limbs, ops
 from .field.scalar import Fp, ONE, P
 
 # ---------------------------------------------------------------------------
@@ -32,37 +31,24 @@ from .field.scalar import Fp, ONE, P
 # ---------------------------------------------------------------------------
 
 
-def _bit_passes(x: torch.Tensor, op) -> torch.Tensor:
-    """hi' = op(hi, lo) for every index bit of the value axis, in place on a
-    copy of ``x``.  The per-bit passes commute."""
-    n = x.shape[0]
-    bits = n.bit_length() - 1
-    assert 1 << bits == n, "size must be a power of two"
-    x = x.clone()
-    for i in range(bits):
-        w = x.view(n >> (i + 1), 2, 1 << i, 4)
-        op(w[:, 1], w[:, 0], out=w[:, 1])
-    return x
-
-
 def to_evals(coeffs: torch.Tensor) -> torch.Tensor:
     """Coefficient -> evaluation form over {0,1}^n (zeta transform)."""
-    return _bit_passes(coeffs, ops.add)
+    return cuda_ops.zm_butterfly(coeffs, add=True)
 
 
 def to_coeffs(evals: torch.Tensor) -> torch.Tensor:
     """Evaluation -> coefficient form (Moebius transform)."""
-    return _bit_passes(evals, ops.sub)
+    return cuda_ops.zm_butterfly(evals, add=False)
 
 
 def bit_reverse(x: torch.Tensor) -> torch.Tensor:
-    """Bit-reverse permutation along the value axis of an (n, 4) tensor
-    (reference src/ntt/mod.rs:113-123)."""
-    n = x.shape[0]
+    """Bit-reverse permutation along the value axis of an (n, 4) or
+    (B, n, 4) tensor (reference src/ntt/mod.rs:113-123)."""
+    n = x.shape[-2]
     bits = n.bit_length() - 1
     if bits <= 1:
         return x
-    return x[bitrev_indices(n, x.device)]
+    return x.index_select(-2, bitrev_indices(n, x.device))
 
 
 _HOST_BITREV_BITS = 13
@@ -104,10 +90,7 @@ _CHUNK_VARS = 8
 
 def _kron_mul(a: torch.Tensor, b: torch.Tensor, out=None) -> torch.Tensor:
     """Tensor-product combine: (m, 4), (n, 4) -> (m*n, 4), out[i*n+j] = a[i]*b[j]."""
-    m, n = a.shape[0], b.shape[0]
-    if out is not None:
-        out = out.view(m, n, 4)
-    return ops.mul(a.reshape(m, 1, 4), b.reshape(1, n, 4), out=out).reshape(m * n, 4)
+    return cuda_ops.kron_mul(a, b, out)
 
 
 def combine_subtables(subs, out=None) -> torch.Tensor:

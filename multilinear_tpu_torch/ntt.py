@@ -5,23 +5,23 @@ src/ntt/mod.rs:34-54); the 2^k-domain generator is 3^((p-1)/2^k).
 
 Structure follows the JAX package: a four-step transform (n = A*B: column
 sub-NTTs, twiddle multiply, transpose, row sub-NTTs) whose sub-NTTs are
-constant-geometry (Pease) DIF stages along axis 0 - each stage is ONE
-launch of the ``butterfly`` kernel - with the twiddle step as two ``mul``
-passes over the rank-structured factors Tc / Tf.
+constant-geometry (Pease) DIF stages along the row axis - two stages per
+launch of the ``butterfly2`` kernel, an odd last stage (all twiddles 1)
+through ``butterfly_notw``, a two-row sub-transform through ``butterfly`` -
+with the twiddle step as one ``twiddle_mul3`` pass over the rank-structured
+factors Tc / Tf.  Every transform takes a leading batch dimension,
+``(B, n, 4)``: the kernels carry a batch extent, so a batch costs the
+launches of one transform.
 
 Output matches the reference exactly: ``ntt(coeffs)[i] = p(g^i)`` in natural
 order (src/ntt/mod.rs:131-174).
-
-Still to port here: the JAX package's fused double-stage kernel
-(``butterfly2``), its twiddle-free last-stage kernel (``butterfly_notw``;
-the last stage's twiddles are all 1, so the general kernel gives the same
-values) and its one-pass twiddle kernel (``twiddle_mul3``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import stats
 from .config import LOG_BLOWUP  # noqa: F401  (re-exported, as in the JAX package)
 from .field import cuda_ops, limbs, ops
 from .field.scalar import P, pow2_generator
@@ -76,8 +76,9 @@ def inv_gen_pows(log_size: int, device) -> torch.Tensor:
     return _pow_table(pow2_generator(log_size).inv().v, log_size - 1, device)
 
 
-def _pease_axis0(x: torch.Tensor, pows: torch.Tensor, log_m: int) -> torch.Tensor:
-    """Constant-geometry (Pease) DIF butterflies along axis 0 of (M, C, 4).
+def _pease_rows(x: torch.Tensor, pows: torch.Tensor, log_m: int) -> torch.Tensor:
+    """Constant-geometry (Pease) DIF butterflies along the row axis of
+    (M, C, 4) or (batch, M, C, 4), M = 2^log_m.
 
     Every stage has identical data movement - split row halves, butterfly,
     interleave rows.  Natural row order in, BIT-REVERSED row order out:
@@ -85,23 +86,30 @@ def _pease_axis0(x: torch.Tensor, pows: torch.Tensor, log_m: int) -> torch.Tenso
         y[2i]   = x[i] + x[i + M/2]
         y[2i+1] = (x[i] - x[i + M/2]) * g^(((i >> s) mod 2^(L-1-s)) << s)
 
-    ``pows``: (M/2, 4) first-half powers of the M-domain root.
+    ``pows``: (M/2, 4) first-half powers of the M-domain root, possibly a
+    strided view of a longer table.  Stages run two per launch; an odd
+    ``log_m`` leaves the last stage, whose twiddles are all 1, to the
+    twiddle-free kernel, and M = 2 is that one stage with its twiddle.
     """
     if log_m == 0:
         return x
-    M, C = x.shape[0], x.shape[1]
-    half = M // 2
-    iota = torch.arange(half, dtype=torch.int64, device=x.device)
-    for s in range(log_m):
-        tw = pows[((iota >> s) & ((half - 1) >> s)) << s]  # (half, 4)
-        x = cuda_ops.butterfly(x[:half], x[half:], tw).reshape(M, C, 4)
+    half = 1 << (log_m - 1)
+    if log_m == 1:
+        stats.bump("ntt_single_stages")
+        return cuda_ops.butterfly(x[..., :1, :, :], x[..., 1:, :, :], pows[:1]).reshape(x.shape)
+    for ps in range(log_m // 2):
+        x = cuda_ops.butterfly2(x, pows, ps)
+    stats.bump("ntt_double_stages", log_m // 2)
+    if log_m % 2:
+        stats.bump("ntt_notw_stages")
+        x = cuda_ops.butterfly_notw(x[..., :half, :, :], x[..., half:, :, :]).reshape(x.shape)
     return x
 
 
-def _bitrev_axis0(x: torch.Tensor, log_m: int) -> torch.Tensor:
+def _bitrev_rows(x: torch.Tensor, log_m: int) -> torch.Tensor:
     if log_m <= 1:
         return x
-    return x[bitrev_indices(1 << log_m, x.device)]
+    return x.index_select(-3, bitrev_indices(1 << log_m, x.device))
 
 
 def _twiddle_factors(gen_v: int, log_n: int, device):
@@ -134,12 +142,23 @@ def _twiddle_factors(gen_v: int, log_n: int, device):
 
 
 def fourstep_transform(x: torch.Tensor, gen_v: int, log_n: int) -> torch.Tensor:
-    """Four-step transform of an (n, 4) tensor for the domain generated by
-    ``gen_v``: natural order in, natural order out."""
+    """Four-step transform over the 2^log_n domain generated by ``gen_v`` of
+    an (n0, 4) or (batch, n0, 4) tensor, n0 <= 2^log_n, taken as zero-padded
+    to the domain's size: natural order in, natural order out.
+
+    Every step rebinds ``x``, so at most one input and one output of a step
+    are alive at a time (the padded copy is made here, not by the caller,
+    for the same reason)."""
     n = 1 << log_n
-    assert x.shape == (n, 4)
+    lead = x.shape[:-2]
+    assert x.shape[-2] <= n and x.shape[-1] == 4 and len(lead) <= 1
     if log_n == 0:
         return x
+    if x.shape[-2] < n:
+        padded = torch.zeros(lead + (n, 4), dtype=torch.int32, device=x.device)
+        padded[..., : x.shape[-2], :] = x
+        x = padded
+        del padded
     a = (log_n + 1) // 2
     b = log_n - a
     A, B = 1 << a, 1 << b
@@ -149,19 +168,17 @@ def fourstep_transform(x: torch.Tensor, gen_v: int, log_n: int) -> torch.Tensor:
     powsA = pows[::B][: max(A // 2, 1)]
     powsB = pows[::A][: max(B // 2, 1)]
 
-    F = _bitrev_axis0(_pease_axis0(x.reshape(A, B, 4), powsA, a), a)
-    S = Tf.shape[0]
-    Fr = F.reshape(A // S, S, B, 4)
-    G = ops.mul(ops.mul(Fr, Tc.reshape(A // S, 1, B, 4)), Tf.reshape(1, S, B, 4))
-    Gt = G.reshape(A, B, 4).transpose(0, 1).contiguous()  # (B, A, 4)
-    H = _bitrev_axis0(_pease_axis0(Gt, powsB, b), b)
-    # flat(H)[k2*A + k1] = out[k1 + A*k2]: already the natural order
-    return H.reshape(n, 4)
+    x = _bitrev_rows(_pease_rows(x.reshape(lead + (A, B, 4)), powsA, a), a)
+    x = cuda_ops.twiddle_mul3(x, Tc, Tf)
+    x = x.transpose(-3, -2).contiguous()  # (B, A, 4)
+    x = _bitrev_rows(_pease_rows(x, powsB, b), b)
+    # flat(x)[k2*A + k1] = out[k1 + A*k2]: already the natural order
+    return x.reshape(lead + (n, 4))
 
 
 def ntt(coeffs: torch.Tensor) -> torch.Tensor:
     """Forward NTT along the value axis: out[i] = p(g^i), natural order."""
-    n = coeffs.shape[0]
+    n = coeffs.shape[-2]
     log_n = n.bit_length() - 1
     assert 1 << log_n == n, "size must be a power of two"
     if log_n == 0:
@@ -170,12 +187,11 @@ def ntt(coeffs: torch.Tensor) -> torch.Tensor:
 
 
 def reed_solomon(coeffs: torch.Tensor, log_blowup: int = LOG_BLOWUP) -> torch.Tensor:
-    """RS-encode: zero-pad coefficients x2^log_blowup, NTT over the big
-    domain (reference src/fri/mod.rs:19-28, rate 1/2)."""
-    n = coeffs.shape[0]
+    """RS-encode an (n, 4) or (batch, n, 4) tensor: the coefficients,
+    zero-padded x2^log_blowup, through the NTT over the big domain (reference
+    src/fri/mod.rs:19-28, rate 1/2)."""
+    n = coeffs.shape[-2]
     log_n = n.bit_length() - 1
     assert 1 << log_n == n
-    padded = torch.zeros((n << log_blowup, 4), dtype=torch.int32, device=coeffs.device)
-    padded[:n] = coeffs
     log_m = log_n + log_blowup
-    return fourstep_transform(padded, pow2_generator(log_m).v, log_m)
+    return fourstep_transform(coeffs, pow2_generator(log_m).v, log_m)

@@ -102,6 +102,54 @@ class PCSProof:
         self.fri_proof.verify_queries(transcript, random_elements)
 
 
+def run_round(tables: SumcheckTables, fri_data: FriProverData, fold_step, k: int, last: bool,
+              previous_sum: Fp, transcript: Transcript):
+    """One sumcheck + FRI round k, shared by the plain and the batched
+    session: round polynomial, challenge, table fold, codeword fold.
+    ``fold_step(k, r, transcript or None)`` folds the codeword(s).  Returns
+    (round polynomial, s(r)).
+
+    ONE device->host copy: this round's partial sums s(1), s(2), and with
+    them the root of ``fri_data``'s newest tree if it has not been absorbed
+    yet.  The fold that ends this round leaves ITS root to the next round's
+    copy in the same way; the last fold absorbs ``last_element`` itself.
+    """
+    tree = fri_data.trees[-1] if fri_data.trees else None
+    sums_dev = tables.partial_sums().view(torch.int32).reshape(-1)
+    if tree is None or tree.has_root_bytes:
+        sums = stats.fetch(sums_dev)
+    else:
+        host = stats.fetch(torch.cat([tree.root_words, sums_dev]))
+        tree.set_root_words(host[:8])
+        transcript.absorb(tree.root_bytes())
+        sums = host[8:]
+    s1, s2 = (ops.limb_sums_to_int(lanes) for lanes in sums.view("<i8").reshape(2, 4))
+    pol, r, new_sum = round_poly_from_sums([s1, s2], previous_sum, transcript)
+    tables.fold(r)
+    fold_step(k, r, transcript if last else None)
+    return pol, new_sum
+
+
+def run_rounds(session, fri_data: FriProverData, max_rounds: Optional[int]) -> int:
+    """Advance a prover session (plain or batched: ``tables``, ``k``,
+    ``n_vars``, ``previous_sum``, ``pols``, ``transcript``, ``config``) by up
+    to ``max_rounds`` rounds of plain folds on ``fri_data``; returns the
+    number of rounds done."""
+    end = session.n_vars if max_rounds is None else min(session.n_vars, session.k + max_rounds)
+    pt = PhaseTimer(session.config.device)
+    done = 0
+    while session.k < end:
+        pol, session.previous_sum = run_round(
+            session.tables, fri_data, fri_data.fold_step, session.k,
+            session.k == session.n_vars - 1, session.previous_sum, session.transcript,
+        )
+        session.pols.append(pol)
+        session.k += 1
+        done += 1
+    pt.mark("rounds")
+    return done
+
+
 class PCSProverSession:
     """Stage-by-stage PCS prover: construct (encode, commit, tables), run
     some or all rounds, finish (queries).  ``PCSProof.prove`` is the one-shot
@@ -143,35 +191,7 @@ class PCSProverSession:
 
     def run_rounds(self, max_rounds: Optional[int] = None) -> int:
         """Run up to ``max_rounds`` sumcheck+FRI rounds; returns rounds done."""
-        end = self.n_vars if max_rounds is None else min(self.n_vars, self.k + max_rounds)
-        pt = PhaseTimer(self.config.device)
-        done = 0
-        while self.k < end:
-            # ONE device->host copy: the newest tree's root (not absorbed
-            # yet) and this round's partial sums s(1), s(2)
-            tree = self.fri_data.trees[-1]
-            sums_dev = self.tables.partial_sums().view(torch.int32).reshape(-1)
-            if tree.has_root_bytes:
-                sums = stats.fetch(sums_dev)
-            else:
-                host = stats.fetch(torch.cat([tree.root_words, sums_dev]))
-                tree.set_root_words(host[:8])
-                self.transcript.absorb(tree.root_bytes())
-                sums = host[8:]
-            s1, s2 = (ops.limb_sums_to_int(lanes) for lanes in sums.view("<i8").reshape(2, 4))
-            pol, r, self.previous_sum = round_poly_from_sums(
-                [s1, s2], self.previous_sum, self.transcript
-            )
-            self.pols.append(pol)
-            self.tables.fold(r)
-            # the last fold absorbs last_elem itself; any other leaves its
-            # root to the next round's copy
-            last = self.k == self.n_vars - 1
-            self.fri_data.fold_step(self.k, r, self.transcript if last else None)
-            self.k += 1
-            done += 1
-        pt.mark("rounds")
-        return done
+        return run_rounds(self, self.fri_data, max_rounds)
 
     def finish(self) -> "PCSProof":
         if self.k != self.n_vars or self.fri_data.last_element is None:

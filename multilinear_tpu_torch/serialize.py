@@ -17,6 +17,8 @@ from __future__ import annotations
 import struct
 from typing import List
 
+from .batched_fri import BatchedFriProof, BatchedQueryProof
+from .batched_pcs import BatchedPCSClaim, BatchedPCSProof
 from .field.scalar import Fp
 from .fri import FriProof, QueryProof
 from .merkle import MerklePath
@@ -142,6 +144,19 @@ def _read_fri(r: _Reader) -> FriProof:
     return FriProof(commitments, queries, last_elem, last_random)
 
 
+def fri_proof_to_bytes(proof: FriProof) -> bytes:
+    w = _Writer()
+    _write_fri(w, proof)
+    return w.done()
+
+
+def fri_proof_from_bytes(buf: bytes) -> FriProof:
+    r = _Reader(buf)
+    proof = _read_fri(r)
+    r.expect_end()
+    return proof
+
+
 # -- sumcheck round polynomials ------------------------------------------------
 
 
@@ -175,3 +190,64 @@ def pcs_proof_from_bytes(buf: bytes) -> PCSProof:
     output = r.felt()
     r.expect_end()
     return PCSProof(fri, pols, inputs, output)
+
+
+# -- batched FRI / PCS -----------------------------------------------------------
+
+
+def _write_batched_fri(w: _Writer, proof: BatchedFriProof):
+    w.digest(proof.batch_commitment)
+    w.u64(len(proof.commitments))
+    for c in proof.commitments:
+        w.digest(c)
+    w.u64(len(proof.queries))
+    for q in proof.queries:
+        _write_path(w, q.batch_path)
+        _write_query(w, q.query_proof)
+    w.felt(proof.last_elem)
+    w.digest(proof.last_random)
+
+
+def _read_batched_fri(r: _Reader) -> BatchedFriProof:
+    batch_commitment = r.digest()
+    commitments = [r.digest() for _ in range(r.u64())]
+    queries = []
+    for _ in range(r.u64()):
+        bp = _read_path(r)
+        qp = _read_query(r)
+        queries.append(BatchedQueryProof(bp, qp))
+    last_elem = r.felt()
+    last_random = r.digest()
+    return BatchedFriProof(batch_commitment, commitments, queries, last_elem, last_random)
+
+
+def batched_fri_proof_to_bytes(proof: BatchedFriProof) -> bytes:
+    w = _Writer()
+    _write_batched_fri(w, proof)
+    return w.done()
+
+
+def batched_fri_proof_from_bytes(buf: bytes) -> BatchedFriProof:
+    r = _Reader(buf)
+    proof = _read_batched_fri(r)
+    r.expect_end()
+    return proof
+
+
+def batched_pcs_proof_to_bytes(proof: BatchedPCSProof) -> bytes:
+    w = _Writer()
+    _write_batched_fri(w, proof.fri_proof)
+    _write_pols(w, proof.sumcheck_polynomials)
+    w.felts(proof.claim.inputs)
+    w.felts(proof.claim.outputs)
+    return w.done()
+
+
+def batched_pcs_proof_from_bytes(buf: bytes) -> BatchedPCSProof:
+    r = _Reader(buf)
+    fri = _read_batched_fri(r)
+    pols = _read_pols(r)
+    inputs = r.felts()
+    outputs = r.felts()
+    r.expect_end()
+    return BatchedPCSProof(fri, pols, BatchedPCSClaim(inputs, outputs))

@@ -4,6 +4,15 @@
 so ``counts()["d2h_copies"]`` is the number of host synchronizations a
 prove paid (the Fiat-Shamir transcript lives on the host: one small copy
 per round).
+
+Routing events, bumped where a module picks a kernel, so that a test can
+assert which one ran:
+
+* ``ntt_double_stages`` / ``ntt_notw_stages`` / ``ntt_single_stages`` - the
+  Pease stages that went through ``butterfly2``, ``butterfly_notw`` and
+  ``butterfly`` (``ntt._pease_rows``);
+* ``fri_folds_fused`` / ``fri_folds_plain`` - folds through
+  ``fold_commit_leaves`` and through ``fold_codeword`` (``fri``).
 """
 
 from __future__ import annotations

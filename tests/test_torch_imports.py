@@ -22,6 +22,7 @@ for name in names + ["chip_smoke"]:
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "multilinear_tpu"))
 from multilinear_tpu_torch import _build
 print("MODULES", len(names))
+print("NAMES", ",".join(names))
 print("BAD", bad)
 print("BUILT", _build._fns is not None or _build.build_seconds is not None)
 """
@@ -43,7 +44,9 @@ def probe():
 
 
 def test_import_leaves_no_jax_in_sys_modules(probe):
-    assert int(probe["MODULES"]) >= 15
+    assert int(probe["MODULES"]) >= 17
+    assert "multilinear_tpu_torch.batched_pcs" in probe["NAMES"]
+    assert "multilinear_tpu_torch.batched_fri" in probe["NAMES"]
     assert probe["BAD"] == "[]"
 
 
@@ -69,7 +72,10 @@ def test_every_kernel_source_and_binding_is_present():
 
     for stem in _build.SOURCES:
         assert os.path.isfile(os.path.join(_build.CSRC, stem + ".cu")), stem
-    assert {"mul", "sha256_words", "butterfly", "fold_commit"} <= set(_build.SOURCES)
+    assert {
+        "mul", "addsub", "sha256_words", "butterfly", "butterfly2", "twiddle_mul3", "kron", "zm",
+        "fold", "fold_commit",
+    } == set(_build.SOURCES)
 
 
 def test_every_wrapper_names_a_bound_c_function():
