@@ -2,14 +2,18 @@
 """On-card smoke run of the PyTorch / CUDA port: ``python3 chip_smoke.py``.
 
 Needs one NVIDIA card, nvcc and PyTorch built for CUDA; fails without them.
-It builds the CUDA kernels from ``multilinear_tpu_torch/csrc``, holds each
-against its plain PyTorch version on the card (all values are integers: the
-tolerance is 0 mismatches), then drives the port's main paths - a PCS prove
-and verify through ``PCSProof.prove`` / ``PCSProof.verify`` at 2^16, 2^20
-and 2^24 evaluations, and a batched PCS prove and verify through
-``BatchedPCSProof.prove`` / ``.verify`` at 10 x 2^20 and 10 x 2^22 - checks
-byte parity with the CPU path and the golden digests of both proof types,
-and checks that a corrupted proof of either type is rejected.
+It builds the CUDA kernels from ``multilinear_tpu_torch/csrc``, takes the two
+factors of every operation bound from the card and the build (the integer
+rate from the card's multiprocessor count and clock, the instruction counts
+from the machine code of probe kernels), holds each kernel against its plain
+PyTorch version on the card (all values are integers: the tolerance is 0
+mismatches) and fails if one reads above 105 % of its bound, then drives the
+port's main paths - a PCS prove and verify through ``PCSProof.prove`` /
+``PCSProof.verify`` at 2^16, 2^20 and 2^24 evaluations, and a batched PCS
+prove and verify through ``BatchedPCSProof.prove`` / ``.verify`` at 10 x 2^20
+and 10 x 2^22 - checks byte parity with the CPU path and the golden digests
+of both proof types, and checks that a corrupted proof of either type is
+rejected.
 
 Each phase prints one JSON line.  Near the end come one line
 ``{"kernels": [...]}`` with every kernel's launches on the driven paths
@@ -34,7 +38,7 @@ import time
 import numpy as np
 import torch
 
-from multilinear_tpu_torch import _build, fri, merkle, mle, ntt, sha256_cuda, stats
+from multilinear_tpu_torch import _build, fri, merkle, mle, ntt, previous_routes, sha256, sha256_cuda, stats
 from multilinear_tpu_torch.batched_pcs import BatchedPCSClaim, BatchedPCSProof
 from multilinear_tpu_torch.config import ProverConfig
 from multilinear_tpu_torch.field import cuda_ops, limbs, ops
@@ -58,22 +62,45 @@ PCS_LOG_SIZES = (16, 20, 24)
 BATCH_POLYS = 10  # the reference batched workload's width
 BATCHED_LOG_SIZES = (20, 22)
 
-# Published peaks of one H100 SXM (NVIDIA's data sheet).  The data sheet has
-# no row for 32-bit integer arithmetic outside the tensor cores; the float32
-# rate is used for it.  Hopper has half as many int32 lanes as float32 lanes,
-# so the true integer peak is lower and the bound stays a lower bound.
+# The card's memory rate is the published peak of one H100 SXM (NVIDIA's data
+# sheet).  The data sheet has no row for 32-bit integer arithmetic outside the
+# tensor cores.  A Hopper multiprocessor has two pipes that take it, each
+# good for 64 results a clock: the integer pipe (add, logic, shift, funnel
+# shift, compare, select) and the multiply-add pipe (IMAD), which also adds
+# and shifts and which the compiler uses for that (IMAD.IADD, IMAD.SHL) to
+# take load off the first.  So the rate of one pipe is taken from what the
+# card reports - its multiprocessor count and its highest SM clock
+# (`integer_rate`) - and an operation bound is the time of the busier pipe
+# with the additions put where they fit best (`ops_time_ms`).  The 64 a clock
+# is the figure of the table "Throughput of Native Arithmetic Instructions"
+# in NVIDIA's CUDA C++ documentation for compute capability 9.0, which gives it
+# for 32-bit integer add, subtract, shift, compare and logic and likewise for
+# 32-bit integer multiply and multiply-add.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
+INT_RESULTS_PER_SM_CLOCK = 64
+# A kernel may read at most this share of its bound: a measured time below
+# the bound is a fault of the bound.
+MAX_BOUND_SHARE = 1.05
 
-# 32-bit integer operations per primitive, counted from csrc/field.cuh and
-# csrc/sha256.cuh: a 128x128 product is 16 32x32 multiply-adds of two
-# operations each plus their carries, the two folds by K and the final
-# conditional subtraction bring it to ~110; an add, sub or half is a 4-limb
-# carry chain plus the conditional correction; a SHA-256 compression is
-# 64 rounds of ~26 operations and 48 schedule words of ~13.
-OPS_MUL = 110
-OPS_ADD = 12
-OPS_SHA_BLOCK = 64 * 26 + 48 * 13 + 8
+# The message-hashing entry is driven, and its kernel held against the plain
+# version and timed, at one shape: 2^20 messages of 16 words.
+MESSAGES_SHAPE = (1 << 20, 16)
+MESSAGES_PATH = "sha256_words entry, 2^20 messages of 16 words"
+
+# Integer instructions of each primitive as a vector (integer pipe only,
+# multiply pipe only, either pipe), counted by `count_primitive_ops` in the
+# machine code of the probe kernels of csrc/opcount.cu; `PEAK` holds the
+# card's rate per pipe.  Both are filled in by main() before any bound is
+# computed.
+OPS: dict = {}
+PEAK: dict = {}
+
+# SASS mnemonics by the pipe that can take them.  Moves (MOV, IMAD.MOV),
+# loads, stores, branches and the uniform datapath (U*) are not arithmetic
+# the function needs and are left out.
+ALU_ONLY = ("LOP3", "LOP", "SHF", "SHR", "PRMT", "LEA", "ISETP", "SEL", "IMNMX", "ICMP", "BREV",
+            "POPC", "FLO", "IABS", "BMSK", "SGXT")
+EITHER_PIPE = ("IADD3", "IADD", "SHL")  # and IMAD.IADD, IMAD.SHL, IMAD.X of RZ * RZ
 
 KERNELS = {
     "mul": {
@@ -90,8 +117,18 @@ KERNELS = {
         "source": "multilinear_tpu_torch/csrc/addsub.cu",
         "replaces": "multilinear_tpu/field/ops.py:230",
     },
+    # the TPU's one SHA-256 kernel is three here: messages, Merkle leaves read
+    # in place, and several inner Merkle levels a launch
     "sha256_words": {
         "source": "multilinear_tpu_torch/csrc/sha256_words.cu",
+        "replaces": "multilinear_tpu/sha256_pallas.py:106",
+    },
+    "sha256_leaves": {
+        "source": "multilinear_tpu_torch/csrc/sha256_leaves.cu",
+        "replaces": "multilinear_tpu/sha256_pallas.py:106",
+    },
+    "merkle_levels": {
+        "source": "multilinear_tpu_torch/csrc/merkle_levels.cu",
         "replaces": "multilinear_tpu/sha256_pallas.py:106",
     },
     "zm_butterfly": {
@@ -142,6 +179,140 @@ def run_text(cmd) -> str:
 
 def smi_line() -> str:
     return run_text(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+
+
+def smi_mhz(field: str) -> float:
+    """A clock of card 0 in MHz, as nvidia-smi reports it."""
+    text = run_text(["nvidia-smi", "-i", "0", f"--query-gpu={field}", "--format=csv,noheader,nounits"])
+    try:
+        return float(text.splitlines()[0])
+    except (ValueError, IndexError):
+        raise RuntimeError(f"nvidia-smi gave no {field}: {text!r}")
+
+
+def integer_rate(dev) -> dict:
+    """32-bit integer results a second: multiprocessors x 64 x highest SM clock."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    mhz = smi_mhz("clocks.max.sm")
+    return {"multiprocessors": sms, "max_sm_mhz": mhz,
+            "int_ops_per_s": sms * INT_RESULTS_PER_SM_CLOCK * mhz * 1e6}
+
+
+def clock_under_load(dev) -> dict:
+    """The SM clock and power draw the card holds while it runs field
+    multiplies back to back (read by nvidia-smi during the run)."""
+    rng = np.random.default_rng(5)
+    a, b = random_field(rng, (1 << 24,), dev), random_field(rng, (1 << 24,), dev)
+    out = torch.empty_like(a)
+    for _ in range(2000):  # ~0.6 s of queued work
+        cuda_ops.mul(a, b, out=out)
+    text = run_text(["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,power.limit",
+                     "--format=csv,noheader"])
+    torch.cuda.synchronize()
+    return {"query": "clocks.sm, clocks.max.sm, power.draw, power.limit", "under_load": text}
+
+
+def sass_int_ops(lib_path: str) -> dict:
+    """{kernel function: {"alu": .., "fma": .., "either": .., "int": their
+    sum, "all": instructions, "by_opcode": {...}}} from `cuobjdump -sass` of
+    a built library."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    res = subprocess.run([exe, "-sass", lib_path], capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed on {lib_path}: {res.stderr[-500:]}")
+    out, cur = {}, None
+    for line in res.stdout.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = out.setdefault(m.group(1), {"alu": 0, "fma": 0, "either": 0, "int": 0, "all": 0,
+                                              "by_opcode": {}})
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)((?:\.[A-Z0-9_]+)*)\s*([^;]*);", line)
+        if not m or cur is None:
+            continue
+        op, mods, operands = m.group(1), m.group(2).split(".")[1:], m.group(3)
+        cur["all"] += 1
+        if op == "IMAD":
+            if "MOV" in mods:
+                continue
+            adds_only = "IADD" in mods or "SHL" in mods or ("X" in mods and ", RZ, RZ," in operands)
+            pipe, name = ("either", "IMAD." + mods[0]) if adds_only else ("fma", "IMAD")
+        elif op in ALU_ONLY:
+            pipe, name = "alu", op
+        elif op in EITHER_PIPE:
+            pipe, name = "either", op
+        else:
+            continue
+        cur[pipe] += 1
+        cur["int"] += 1
+        cur["by_opcode"][name] = cur["by_opcode"].get(name, 0) + 1
+    return out
+
+
+def ops_vector(counts: dict) -> np.ndarray:
+    return np.array([counts["alu"], counts["fma"], counts["either"]], dtype=np.float64)
+
+
+def alu_ops(n: float) -> np.ndarray:
+    """n instructions that only the integer pipe takes (byte permutes)."""
+    return np.array([n, 0.0, 0.0])
+
+
+def ops_time_ms(ops) -> float:
+    """Least time for a vector of (integer pipe, multiply pipe, either)
+    instruction counts: the busier pipe, the additions put where they fit."""
+    alu, fma, either = (float(v) for v in np.broadcast_to(np.asarray(ops, dtype=np.float64), (3,)))
+    return max(alu, fma, (alu + fma + either) / 2) / PEAK["int_ops_per_s"] * 1e3
+
+
+def count_primitive_ops() -> dict:
+    """Integer instructions of one field multiply, add, subtract, halving and
+    of the three SHA-256 block forms: each probe kernel of csrc/opcount.cu
+    less the frame (loads, stores, index arithmetic) it shares with its
+    base kernel."""
+    probes = sass_int_ops(_build.library_paths["opcount"])
+    need = ("opcount_base", "opcount_mul", "opcount_add", "opcount_sub", "opcount_half",
+            "opcount_sha_base", "opcount_sha_block", "opcount_sha_half_block", "opcount_sha_table_block")
+    missing = [k for k in need if k not in probes]
+    if missing:
+        raise RuntimeError(f"probe kernels missing from the machine code: {missing}")
+    base, sha_base = ops_vector(probes["opcount_base"]), ops_vector(probes["opcount_sha_base"])
+    ops_ = {
+        "mul": ops_vector(probes["opcount_mul"]) - base,
+        "add": ops_vector(probes["opcount_add"]) - base,
+        "sub": ops_vector(probes["opcount_sub"]) - base,
+        "half": ops_vector(probes["opcount_half"]) - base,
+        # 16 message words; 8 message words and the padding of a 32-byte
+        # message; a constant block run from its K + W table
+        "sha_block": ops_vector(probes["opcount_sha_block"]) - sha_base,
+        "sha_half_block": ops_vector(probes["opcount_sha_half_block"]) - sha_base,
+        "sha_table_block": ops_vector(probes["opcount_sha_table_block"]) - sha_base,
+    }
+    if min(v.sum() for v in ops_.values()) <= 0 or min(v.min() for v in ops_.values()) < -4:
+        raise RuntimeError(f"implausible instruction counts: {ops_} from {probes}")
+    return {"ops": {k: np.maximum(v, 0) for k, v in ops_.items()}, "probes": {k: probes[k] for k in need}}
+
+
+def sha_message_ops(n_words: int) -> np.ndarray:
+    """Integer operations of SHA-256 over one message of ``n_words`` words,
+    as the function needs them: full blocks, a half-constant block for the
+    32-byte message, a table block where the last block is padding only."""
+    full, rest = divmod(n_words, 16)
+    if rest == 0:
+        return full * OPS["sha_block"] + OPS["sha_table_block"]
+    if n_words == 8:
+        return OPS["sha_half_block"]
+    return (full + (2 if rest > 13 else 1)) * OPS["sha_block"]
+
+
+def fold_ops() -> np.ndarray:
+    """One folded element: half(a + b) + (a - b) * tw * rh."""
+    return 2 * OPS["mul"] + 2 * OPS["add"] + OPS["sub"] + OPS["half"]
+
+
+def node_ops() -> np.ndarray:
+    """A Merkle inner node: one full compression and the constant block."""
+    return OPS["sha_block"] + OPS["sha_table_block"]
 
 
 def launch_counts() -> dict:
@@ -205,9 +376,26 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(n_bytes: float, n_ops: float):
+def graph_ms(fn, copies: int = 20, reps: int = 5) -> float:
+    """Device time of ``fn()`` with the host taken out: ``copies`` calls are
+    captured into one CUDA graph and the graph is replayed.  For work of a
+    few microseconds, which the host cannot launch as fast as the card runs
+    it."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(copies):
+            fn()
+    ms = time_ms(graph.replay, reps) / copies
+    del graph
+    return ms
+
+
+def bound(n_bytes: float, n_ops):
+    """(ms, "bytes" or "operations"); ``n_ops`` is an instruction vector."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_OPS_PER_S * 1e3
+    t_ops = ops_time_ms(n_ops)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -243,6 +431,8 @@ def check_kernel(name, label, kernel_fn, plain_fn, n_bytes, n_ops, shapes, timed
         row["plain_ms"] = time_ms(plain_fn, 1)
         row["bound_ms"] = b_ms
         row["bound_by"] = b_by
+        row["bound_share"] = b_ms / row["kernel_ms"]
+        print(json.dumps(row), file=sys.stderr, flush=True)  # kept even if a later case fails
     torch.cuda.empty_cache()
     if res["mismatches"]:
         raise RuntimeError(f"kernel {name} disagrees with its plain version: {row}")
@@ -265,7 +455,7 @@ def kernels_phase(dev) -> dict:
     for label, n, timed in (("main 2^25", 1 << 25, True), ("ragged", 1_000_003, False)):
         a, b = random_field(rng, (n,), dev), random_field(rng, (n,), dev)
         run("mul", label, lambda: cuda_ops.mul(a, b), lambda: cuda_ops.mul_plain(a, b),
-            n_bytes=48 * n, n_ops=OPS_MUL * n, shapes=[[n, 4], [n, 4]], timed=timed)
+            n_bytes=48 * n, n_ops=OPS["mul"] * n, shapes=[[n, 4], [n, 4]], timed=timed)
     a, b = edge_pairs(dev)
     for name, plain in (("mul", cuda_ops.mul_plain), ("add", ops.add_plain), ("sub", ops.sub_plain)):
         kernel = getattr(cuda_ops, name)
@@ -285,11 +475,11 @@ def kernels_phase(dev) -> dict:
     data = random_field(rng, (2, n), dev)
     hi, lo = data[:, n // 2:], data[:, : n // 2]
     run("add", "main halves of (2, 2^24)", lambda: cuda_ops.add(hi, lo), lambda: ops.add_plain(hi, lo),
-        n_bytes=48 * n, n_ops=OPS_ADD * n, shapes=[list(hi.shape)] * 2, timed=True)
+        n_bytes=48 * n, n_ops=OPS["add"] * n, shapes=[list(hi.shape)] * 2, timed=True)
     w = data[0].view(1 << 11, 2, 1 << 12, 4)
     run("sub", "main strided halves, bit 12 of 2^24", lambda: cuda_ops.sub(w[:, 1], w[:, 0]),
         lambda: ops.sub_plain(w[:, 1], w[:, 0]),
-        n_bytes=48 * (n // 2), n_ops=OPS_ADD * (n // 2), shapes=[list(w[:, 1].shape)] * 2, timed=True)
+        n_bytes=48 * (n // 2), n_ops=OPS["sub"] * (n // 2), shapes=[list(w[:, 1].shape)] * 2, timed=True)
 
     def in_place():
         y = data[0].clone()
@@ -319,7 +509,7 @@ def kernels_phase(dev) -> dict:
         tw = random_field(rng, (H,), dev)
         run("butterfly", label, lambda: cuda_ops.butterfly(u, v, tw),
             lambda: cuda_ops.butterfly_plain(u, v, tw),
-            n_bytes=64 * H * C + 16 * H, n_ops=(OPS_MUL + 2 * OPS_ADD) * H * C,
+            n_bytes=64 * H * C + 16 * H, n_ops=(OPS["mul"] + OPS["add"] + OPS["sub"]) * H * C,
             shapes=[[H, C, 4], [H, C, 4], [H, 4]], timed=timed)
     del u, v, tw
 
@@ -335,7 +525,7 @@ def kernels_phase(dev) -> dict:
         u, v = x[..., :H, :, :], x[..., H:, :, :]
         n = x.numel() // 8
         run("butterfly_notw", label, lambda: cuda_ops.butterfly_notw(u, v),
-            lambda: cuda_ops.butterfly_notw_plain(u, v), n_bytes=64 * n, n_ops=2 * OPS_ADD * n,
+            lambda: cuda_ops.butterfly_notw_plain(u, v), n_bytes=64 * n, n_ops=(OPS["add"] + OPS["sub"]) * n,
             shapes=[list(u.shape)] * 2, timed=timed)
     u, v = edge_pairs(dev)
     run("butterfly_notw", "edge pairs", lambda: cuda_ops.butterfly_notw(u.view(16, 16, 4), v.view(16, 16, 4)),
@@ -363,7 +553,7 @@ def kernels_phase(dev) -> dict:
             run("butterfly2", f"{label}, ps={ps}",
                 lambda: cuda_ops.butterfly2(x, pows, ps),
                 lambda: cuda_ops.butterfly2_plain(x, pows, ps),
-                n_bytes=32 * n + 16 * (M // 2), n_ops=(OPS_MUL + 2 * OPS_ADD) * n,
+                n_bytes=32 * n + 16 * (M // 2), n_ops=(OPS["mul"] + OPS["add"] + OPS["sub"]) * n,
                 shapes=[list(x.shape), list(pows.shape)], timed=timed and ps == 0)
     x = limbs.pack_ints(EDGES, device=dev).view(4, 4, 4)
     pows = limbs.pack_ints(EDGES[3:5], device=dev)
@@ -385,7 +575,7 @@ def kernels_phase(dev) -> dict:
         n = F.numel() // 4
         run("twiddle_mul3", label, lambda: cuda_ops.twiddle_mul3(F, Tc, Tf),
             lambda: cuda_ops.twiddle_mul3_plain(F, Tc, Tf),
-            n_bytes=32 * n + 4 * (Tc.numel() + Tf.numel()), n_ops=2 * OPS_MUL * n,
+            n_bytes=32 * n + 4 * (Tc.numel() + Tf.numel()), n_ops=2 * OPS["mul"] * n,
             shapes=[list(F.shape), list(Tc.shape), list(Tf.shape)], timed=timed)
     F = limbs.pack_ints(EDGES, device=dev).view(4, 4, 4)
     Tc, Tf = random_field(rng, (2, 4), dev), limbs.pack_ints(EDGES[8:], device=dev).view(2, 4, 4)
@@ -402,51 +592,143 @@ def kernels_phase(dev) -> dict:
         packed = torch.zeros((2, m * n, 4), dtype=torch.int32, device=dev)
         run("kron_mul", label, lambda: cuda_ops.kron_mul(a, b, out=packed[1]),
             lambda: cuda_ops.kron_mul_plain(a, b),
-            n_bytes=16 * (m * n + m + n), n_ops=OPS_MUL * m * n, shapes=[[m, 4], [n, 4]], timed=timed)
+            n_bytes=16 * (m * n + m + n), n_ops=OPS["mul"] * m * n, shapes=[[m, 4], [n, 4]], timed=timed)
     a = limbs.pack_ints(EDGES, device=dev)
     run("kron_mul", "edge pairs", lambda: cuda_ops.kron_mul(a, a), lambda: cuda_ops.kron_mul_plain(a, a),
         shapes=[[16, 4]] * 2)
     del a, b, packed
 
-    # zm_butterfly: the Moebius transform of 2^24 evaluations (3 passes) and of
-    # the batched encode's (10, 2^22), both directions, and sizes that end
-    # inside the first pass, on its edge, and one bit past it
-    for label, shape, timed in (("main 2^24", (1 << 24,), True), ("batched (10, 2^22)", (10, 1 << 22), False),
-                                ("n=2", (2,), False), ("n=2^11", (1 << 11,), False),
-                                ("n=2^12 batch of 3", (3, 1 << 12), False)):
+    # zm_butterfly: both directions at every size up to one past the tiles
+    # (2^1..2^13 and 2^14; each also with the tile its size does not take),
+    # batches that share a tile and that do not, the Moebius transform of
+    # 2^22 and 2^24 evaluations (2 passes) and of the batched encode's
+    # (10, 2^22); then the same sizes through the mode the encode uses, whose last pass stores bit-reversed into a zero-padded
+    # tensor twice as long (the main path's shape: timed as the kernel's row)
+    zm_shapes = [((1 << b,), False) for b in range(1, 15)]
+    zm_shapes += [((3, 1 << 2), False), ((5, 1 << 12), False), ((1 << 22,), False),
+                  ((1 << 24,), True), ((10, 1 << 22), True)]
+    for shape, timed in zm_shapes:
         x = random_field(rng, shape, dev)
         n = x.numel() // 4
         bits = shape[-1].bit_length() - 1
+        label = " x ".join(f"2^{v.bit_length() - 1}" if v & (v - 1) == 0 else str(v) for v in shape)
         for add in (False, True):
-            run("zm_butterfly", f"{label}, {'zeta (add)' if add else 'Moebius (sub)'}",
+            row = check_kernel(
+                "zm_butterfly", f"{label}, {'zeta (add)' if add else 'Moebius (sub)'}",
                 lambda: cuda_ops.zm_butterfly(x, add), lambda: cuda_ops.zm_butterfly_plain(x, add),
-                n_bytes=32 * n, n_ops=OPS_ADD * bits * n // 2, shapes=[list(x.shape)],
-                timed=timed and not add)
+                32 * n, OPS["add" if add else "sub"] * bits * n // 2, [list(x.shape)], timed and not add)
+            rows.append(row)
+            if timed and not add:
+                main.setdefault(f"zm_butterfly/natural/{label}", row)
+        if not timed:  # the tile this size does not take by itself
+            other = 25 - cuda_ops.zm_tile_bits(bits)
+            for reverse in (False, True):
+                def other_tile():
+                    out = torch.zeros(x.shape[:-2] + ((2 if reverse else 1) * shape[-1], 4),
+                                      dtype=torch.int32, device=dev)
+                    cuda_ops._zm_launches(x, False, out, reverse, other)
+                    return out
+                run("zm_butterfly", f"{label}, Moebius, 2^{other} tile" + (", bit-reversed" if reverse else ""),
+                    other_tile, (lambda: cuda_ops.zm_bitrev_pad_plain(x, False, 1)) if reverse
+                    else (lambda: cuda_ops.zm_butterfly_plain(x, False)), shapes=[list(x.shape)])
+        got = cuda_ops.zm_bitrev_pad(x, False, 1)
+        upper_nonzero = int((got[..., shape[-1]:, :] != 0).sum())
+        del got
+        if upper_nonzero:
+            raise RuntimeError(f"zm_bitrev_pad left {upper_nonzero} non-zero limbs above n at {label}")
+        row = check_kernel(
+            "zm_butterfly", f"{label}, Moebius, bit-reversed into a zero-padded 2n",
+            lambda: cuda_ops.zm_bitrev_pad(x, False, 1), lambda: cuda_ops.zm_bitrev_pad_plain(x, False, 1),
+            16 * n + 32 * n, OPS["sub"] * bits * n // 2, [list(x.shape)], timed)
+        rows.append(row)
+        if timed:
+            main.setdefault("zm_butterfly", row)
+            main.setdefault(f"zm_butterfly/bitrev_pad/{label}", row)
     x = limbs.pack_ints(EDGES, device=dev)
     for add in (False, True):
         run("zm_butterfly", f"edge values, add={add}", lambda: cuda_ops.zm_butterfly(x, add),
             lambda: cuda_ops.zm_butterfly_plain(x, add), shapes=[[16, 4]])
     del x
 
-    # sha256_words: the first inner level (2^23 nodes of 16 words) and the
-    # leaf level (2^24 pair leaves of 8 words) of the 2^24 prove's layer-0
-    # tree, and the batch tree's leaves of the 10 x 2^22 prove: 2^22 messages
-    # of 80 words (2 * 10 elements), which take the kernel's run-time width
-    sha_cases = (("main inner 2^23 x 16", 1 << 23, 16, True), ("leaves 2^24 x 8", 1 << 24, 8, True),
-                 ("batch leaves 2^22 x 80", 1 << 22, 80, True),
-                 ("ragged 1001 x 13", 1001, 13, False), ("ragged 33 x 30", 33, 30, False))
+    # sha256_words: contiguous big-endian messages.  No prover path hashes
+    # messages any more (the trees go through the two kernels below); the
+    # entry is driven on its own, at the first shape here (`messages_phase`).
+    # 16 words ends in the table block, 8 words is the half-constant block,
+    # any other width takes the run-time loop.
+    sha_cases = (("2^20 x 16 words", *MESSAGES_SHAPE, True),
+                 ("2^20 x 8 words", 1 << 20, 8, True),
+                 ("ragged 1001 x 13", 1001, 13, False), ("ragged 33 x 30", 33, 30, False),
+                 ("ragged 77 x 32", 77, 32, False))
     for label, n, nw, timed in sha_cases:
         msg = torch.from_numpy(
             rng.integers(0, 2**32, size=(n, nw), dtype=np.uint32).view(np.int32)).to(dev)
-        blocks = sha256_cuda.n_blocks(nw)
         row = check_kernel("sha256_words", label, lambda: sha256_cuda.sha256_words(msg),
                            lambda: sha256_cuda.sha256_words_plain(msg),
-                           (4 * nw + 32) * n, OPS_SHA_BLOCK * blocks * n, [[n, nw]], timed)
+                           (4 * nw + 32) * n, sha_message_ops(nw) * n, [[n, nw]], timed)
         rows.append(row)
         if timed:
             main.setdefault("sha256_words", row)
             main.setdefault(f"sha256_words/{nw}", row)
     del msg
+
+    # sha256_leaves: the pair leaves of the 2^24 prove's 2^25 codeword
+    # (B = 2, 2^24 leaves), the batch tree of the 10 x 2^22 prove (B = 20,
+    # 2^22 leaves), run-time widths, ragged counts, and columns that are not
+    # contiguous (every other column of a wider payload; every other element)
+    leaf_cases = (("main B=2, 2^24 pair leaves", 2, 1 << 24, True),
+                  ("batched B=20, 2^22 leaves", 20, 1 << 22, True),
+                  ("B=1, 2^20", 1, 1 << 20, False), ("B=3, 2^20", 3, 1 << 20, False),
+                  ("B=4, 2^16 (table tail)", 4, 1 << 16, False),
+                  ("ragged B=1 x 1001", 1, 1001, False), ("ragged B=2 x 1001", 2, 1001, False),
+                  ("ragged B=3 x 77", 3, 77, False), ("ragged B=20 x 333", 20, 333, False))
+    for label, B, n, timed in leaf_cases:
+        cols = random_field(rng, (B, n), dev)
+        ops_leaf = sha_message_ops(4 * B) + alu_ops(4 * B)  # one byte permute per word
+        row = check_kernel("sha256_leaves", label, lambda: merkle.leaf_hashes(cols),
+                           lambda: merkle.leaf_hashes_plain(cols),
+                           (16 * B + 32) * n, ops_leaf * n, [[B, n, 4]], timed)
+        rows.append(row)
+        if timed:
+            main.setdefault("sha256_leaves", row)
+            main.setdefault(f"sha256_leaves/{B}", row)
+    wide = random_field(rng, (4, 1 << 12), dev)
+    for label, view in (("pair view of a codeword", fri._pair_view(wide[1])),
+                        ("every other column", wide[::2]), ("every other element", wide[:2, ::2]),
+                        ("a pair view inside a batch", wide.view(8, 1 << 11, 4)[2:4])):
+        run("sha256_leaves", f"strided: {label}", lambda: merkle.leaf_hashes(view),
+            lambda: merkle.leaf_hashes_plain(view), shapes=[list(view.shape), list(view.stride())])
+    del cols, wide, view
+
+    # merkle_levels: trees of 1 to 24 levels - one block, exactly one
+    # launch's worth (9 narrow, 11 wide), one more - through the default plan
+    # and through plans that force either block width; the tree above the
+    # 2^24 leaf digests of the 2^24 prove is the timed main shape (3 launches)
+    for n_levels in (1, 2, 8, 9, 10, 11, 12, 13, 20, 24):
+        leaf = torch.from_numpy(
+            rng.integers(0, 2**32, size=(1 << n_levels, 8), dtype=np.uint32).view(np.int32)).to(dev)
+        n_nodes = (1 << n_levels) - 1
+        timed = n_levels == 24
+        row = check_kernel("merkle_levels", f"{n_levels} levels, plan {sha256_cuda.levels_plan(1 << n_levels)}",
+                           lambda: tuple(merkle.tree_levels(leaf)), lambda: tuple(merkle.tree_levels_plain(leaf)),
+                           32 * (n_nodes + 1) + 32 * n_nodes, node_ops() * n_nodes, [[1 << n_levels, 8]], timed)
+        rows.append(row)
+        if timed:
+            main.setdefault("merkle_levels", row)
+        for per_thread, span_bits in ((1, 9), (4, 11)):
+            plan = [(1 << b, min(b, span_bits), per_thread) for b in range(n_levels, 0, -span_bits)]
+            run("merkle_levels", f"{n_levels} levels, {per_thread} per thread: {plan}",
+                lambda: tuple(sha256_cuda._tree_levels_launch(leaf, plan)),
+                lambda: tuple(merkle.tree_levels_plain(leaf)), shapes=[[1 << n_levels, 8]])
+    # one level alone, 2^24 digests -> 2^23 parents: the shape the message
+    # kernel it replaced was timed at
+    for per_thread in (1, 4):
+        row = check_kernel("merkle_levels", f"one level of 2^23 parents, {per_thread} per thread",
+                           lambda: tuple(sha256_cuda._tree_levels_launch(leaf, [(1 << 24, 1, per_thread)])[:1]),
+                           lambda: (sha256_cuda.sha256_words_plain(leaf.view(1 << 23, 16)),),
+                           96 << 23, node_ops() * (1 << 23), [[1 << 24, 8]], True)
+        rows.append(row)
+        main[f"merkle_levels/one level/{per_thread}"] = row
+    del leaf
 
     # fold_codeword: round 0 of the 10 x 2^22 batched prove, on the
     # fingerprinted 2^23 codeword; the fold that ends every chain (m = 4)
@@ -459,7 +741,7 @@ def kernels_phase(dev) -> dict:
         tw = inv_gen_pows(log_dom, dev)
         run("fold_codeword", label, lambda: cuda_ops.fold_codeword(code, tw, stride, rh),
             lambda: cuda_ops.fold_codeword_plain(code, tw, stride, rh),
-            n_bytes=64 * (m // 2), n_ops=(2 * OPS_MUL + 4 * OPS_ADD) * (m // 2),
+            n_bytes=64 * (m // 2), n_ops=fold_ops() * (m // 2),
             shapes=[[m, 4], list(tw.shape)], timed=timed)
     code, tw = limbs.pack_ints(EDGES, device=dev), limbs.pack_ints(EDGES[:8], device=dev)
     for rh_edge in (0, 1, P - 1, (P + 1) // 2):
@@ -477,12 +759,16 @@ def kernels_phase(dev) -> dict:
             lambda: cuda_ops.fold_commit_leaves(code, tw, stride, rh),
             lambda: cuda_ops.fold_commit_leaves_plain(code, tw, stride, rh),
             n_bytes=q * (4 * 16 + 2 * 16 + 2 * 16 + 32),
-            n_ops=q * (2 * (2 * OPS_MUL + 4 * OPS_ADD) + OPS_SHA_BLOCK),
+            n_ops=q * (2 * fold_ops() + OPS["sha_half_block"] + alu_ops(8)),
             shapes=[[m, 4], list(tw.shape)], timed=timed)
     del code, tw
     clear_caches()
     torch.cuda.empty_cache()
     emit("kernels", tolerance="0 mismatches (integers)", cases=rows)
+    over = [r for r in rows if r.get("bound_share", 0) > MAX_BOUND_SHARE]
+    if over:
+        raise RuntimeError(f"kernels read more than {MAX_BOUND_SHARE} of their bound - the bound is at "
+                           f"fault: {[(r['kernel'], r['case'], r['bound_share']) for r in over]}")
     return main
 
 
@@ -491,20 +777,26 @@ def kernels_phase(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def routes_phase(dev, log_n: int = 24) -> None:
-    """Time, at the shapes of the 2^log_n prove, the route through each of
-    the six later kernels beside the route that stood in for it before,
-    composed here from the first four kernels (``mul``, ``sub``,
-    ``butterfly``, ``fold_commit_leaves``); then the batched encode as one
-    batch beside a loop over its polynomials.  ``bound_ms`` is the bytes the
-    fused kernel has to move over the card's memory rate."""
+def routes_phase(dev, log_n: int = 24, log_b: int = BATCHED_LOG_SIZES[-1]) -> None:
+    """Time, at the shapes of the 2^log_n prove, the route through each
+    later kernel beside the route that stood in for it before: six composed
+    here from the first four kernels (``mul``, ``sub``, ``butterfly``,
+    ``fold_commit_leaves``), and the redesigned Merkle hashing and Moebius
+    transform beside the kernels they replaced (``previous_routes``); then
+    the batched encode as one batch beside a loop over its polynomials.
+    ``bound_ms`` is the bytes the new route has to move over the card's
+    memory rate."""
     rng = np.random.default_rng(7)
     log_m = log_n + 1
     n, m = 1 << log_n, 1 << log_m
     elem = 16
     rows = []
 
-    def row(kernel, old_route, old_fn, new_route, new_fn, fused_bytes):
+    def row(kernel, old_route, old_fn, new_route, new_fn, fused_bytes, same=False):
+        if same:  # the two routes compute the same function: hold them to it
+            res = compare(old_fn(), new_fn())
+            if res["mismatches"]:
+                raise RuntimeError(f"routes of {kernel} disagree: {old_route} / {new_route}: {res}")
         old_ms, new_ms = time_ms(old_fn, 2), time_ms(new_fn, 2)
         rows.append({"kernel": kernel, "old_route": old_route, "old_ms": old_ms,
                      "new_route": new_route, "new_ms": new_ms,
@@ -588,9 +880,122 @@ def routes_phase(dev, log_n: int = 24) -> None:
     clear_caches()
     torch.cuda.empty_cache()
 
+    # Merkle hashing: the replaced route (byte-swapped copies, a concatenation,
+    # the message kernel; one launch per level) beside the leaves read in
+    # place and several levels a launch
+    for label, n_cols, log_leaves in ((f"2 x 2^{log_n}", 2, log_n), (f"20 x 2^{log_b}", 20, log_b)):
+        cols = random_field(rng, (n_cols, 1 << log_leaves), dev)
+        row("sha256_leaves", f"{label}: limbs_to_words + torch.cat + message kernel",
+            lambda: previous_routes.leaf_hashes(cols), "leaf_hashes: columns hashed in place",
+            lambda: merkle.leaf_hashes(cols), (16 * n_cols + 32) << log_leaves, same=True)
+        del cols
+    leaf = torch.from_numpy(
+        rng.integers(0, 2**32, size=(1 << log_n, 8), dtype=np.uint32).view(np.int32)).to(dev)
+    tree_bytes = 64 * ((1 << log_n) - 1) + 32
+    row("merkle_levels", f"2^{log_n} leaf digests: one message-kernel launch per level ({log_n})",
+        lambda: tuple(previous_routes.tree_levels(leaf)),
+        f"tree_levels: {len(sha256_cuda.levels_plan(1 << log_n))} launches", lambda: tuple(merkle.tree_levels(leaf)),
+        tree_bytes, same=True)
+    narrow = [(1 << b, min(b, 9), 1) for b in range(log_n, 0, -9)]
+    wide = [(1 << b, min(b, 11), 4) for b in range(log_n, 0, -11)]
+    row("merkle_levels block width", f"512 digests a block, 9 levels a launch ({len(narrow)} launches)",
+        lambda: tuple(sha256_cuda._tree_levels_launch(leaf, narrow)),
+        f"2048 digests a block, 11 levels a launch ({len(wide)} launches)",
+        lambda: tuple(sha256_cuda._tree_levels_launch(leaf, wide)), tree_bytes, same=True)
+    # the block widths on the smaller trees of a prove: device time alone
+    # (replayed graphs) and as the host launches them
+    widths = []
+    for bits in range(10, 23):
+        sub = leaf[: 1 << bits].contiguous()
+        narrow = [(1 << b, min(b, 9), 1) for b in range(bits, 0, -9)]
+        wide = [(1 << b, min(b, 11), 4) for b in range(bits, 0, -11)]
+        res = compare(tuple(sha256_cuda._tree_levels_launch(sub, narrow)),
+                      tuple(sha256_cuda._tree_levels_launch(sub, wide)))
+        if res["mismatches"]:
+            raise RuntimeError(f"merkle_levels block widths disagree at 2^{bits}: {res}")
+        entry = {"log2_leaf_digests": bits, "default_plan": sha256_cuda.levels_plan(1 << bits)}
+        for name, plan in (("narrow", narrow), ("wide", wide), ("default", entry["default_plan"])):
+            entry[f"{name}_device_ms"] = graph_ms(lambda: sha256_cuda._tree_levels_launch(sub, plan))
+            entry[f"{name}_launched_ms"] = time_ms(lambda: sha256_cuda._tree_levels_launch(sub, plan), 50)
+        widths.append(entry)
+        del sub
+    small = leaf[: 1 << 12].contiguous()
+    row("merkle_levels, a small tree", "2^12 leaf digests: one message-kernel launch per level (12)",
+        lambda: tuple(previous_routes.tree_levels(small)), "tree_levels: 2 launches",
+        lambda: tuple(merkle.tree_levels(small)), 64 * ((1 << 12) - 1) + 32, same=True)
+    del leaf, small
+
+    # the encode's Moebius step: clone + three passes of the replaced kernel,
+    # a bit-reversal gather and a copy into a zeroed tensor, beside the two
+    # passes whose last store does the reversal and the padding; and the
+    # kernel's two tile sizes
+    zm_alone = []
+
+    def previous_encode_input(x):
+        y = mle.bit_reverse(previous_routes.zm_butterfly(x, False))
+        padded = torch.zeros(x.shape[:-2] + (2 * x.shape[-2], 4), dtype=torch.int32, device=dev)
+        padded[..., : x.shape[-2], :] = y
+        return padded
+
+    def with_tile(x, tile_bits, reverse):
+        out = torch.empty(x.shape[:-2] + ((2 if reverse else 1) * x.shape[-2], 4), dtype=torch.int32, device=dev)
+        if reverse:
+            out[..., x.shape[-2]:, :].zero_()
+        cuda_ops._zm_launches(x, False, out, reverse, tile_bits)
+        return out
+
+    for label, shape in ((f"2^{log_n}", (1 << log_n,)), (f"{BATCH_POLYS} x 2^{log_b}", (BATCH_POLYS, 1 << log_b))):
+        x = random_field(rng, shape, dev)
+        n_el = x.numel() // 4
+        bits = shape[-1].bit_length() - 1
+        row("zm_butterfly", f"{label}: clone + {len(previous_routes.zm_passes(bits))} passes (2^11 tile)",
+            lambda: previous_routes.zm_butterfly(x, False),
+            f"zm_butterfly: {len(cuda_ops.zm_passes(bits))} passes, no clone", lambda: cuda_ops.zm_butterfly(x, False),
+            32 * n_el, same=True)
+        row("zm_butterfly + bit_reverse + pad", f"{label}: previous passes + index_select + padded copy",
+            lambda: previous_encode_input(x), "to_coeffs_bitrev_padded: the last pass stores it",
+            lambda: mle.to_coeffs_bitrev_padded(x, 1), 48 * n_el, same=True)
+        # each pass alone, beside a device copy of the same table: no pass
+        # can be faster than that
+        out = torch.empty_like(x)
+        padded = torch.empty(shape[:-1] + (2 * shape[-1], 4), dtype=torch.int32, device=dev)
+        alone = {"shape": list(shape), "device_copy_ms": time_ms(lambda: out.copy_(x), 5), "passes": []}
+        for tile_bits in (12, 13):
+            for d, c, log_w in cuda_ops.zm_passes(bits, tile_bits):
+                for reverse in ((False, True) if d + c == bits else (False,)):
+                    ms = time_ms(lambda: cuda_ops._launch(
+                        "zm_butterfly", "mlt_zm_tiles", dev, x.data_ptr(), (padded if reverse else out).data_ptr(),
+                        n_el, d, c, log_w, 0, bits if reverse else 0, 2 * shape[-1] if reverse else 0, tile_bits), 5)
+                    alone["passes"].append({"tile_bits": tile_bits, "first_bit": d, "bits": c, "log2_run": log_w,
+                                            "bit_reversed_store": reverse, "ms": ms})
+        # the whole transform on tensors at four different places in device
+        # memory (each allocation kept while the next is made), with the
+        # clock the card holds meanwhile
+        held = []
+        for _ in range(4):
+            xi, oi = x.clone(), torch.empty_like(x)
+            held.append((xi, oi))
+            ms = time_ms(lambda: cuda_ops._zm_launches(xi, False, oi, False), 10)
+            alone.setdefault("whole_at_four_places_ms", []).append(ms)
+        for _ in range(300):
+            cuda_ops._zm_launches(xi, False, oi, False)
+        alone["clocks_meanwhile"] = run_text(["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm,clocks.mem,power.draw",
+                                              "--format=csv,noheader"])
+        torch.cuda.synchronize()
+        del held, xi, oi
+        zm_alone.append(alone)
+        del out, padded
+        for reverse in (False, True):
+            row("zm_butterfly tile" + (" (bit-reversed store)" if reverse else ""),
+                f"{label}: 2^12 tile, {len(cuda_ops.zm_passes(bits, 12))} passes", lambda: with_tile(x, 12, reverse),
+                f"2^13 tile, {len(cuda_ops.zm_passes(bits, 13))} passes", lambda: with_tile(x, 13, reverse),
+                (48 if reverse else 32) * n_el, same=True)
+        del x
+    clear_caches()
+    torch.cuda.empty_cache()
+
     # the batched encode: one batch through kernels that carry a batch
     # extent, or one polynomial at a time through the same kernels
-    log_b = BATCHED_LOG_SIZES[-1]
     polys = random_field(rng, (BATCH_POLYS, 1 << log_b), dev)
     encode = {}
     for name, fn in (("one_batch", lambda: fri.encode_mle_for_fri(polys)),
@@ -604,7 +1009,7 @@ def routes_phase(dev, log_n: int = 24) -> None:
     del polys
     clear_caches()
     torch.cuda.empty_cache()
-    emit("routes", log_n=log_n, routes=rows,
+    emit("routes", log_n=log_n, routes=rows, merkle_block_widths=widths, zm_passes_alone=zm_alone,
          batched_encode={"shape": [BATCH_POLYS, 1 << log_b], **encode})
 
 
@@ -789,6 +1194,23 @@ def parity_phase(dev):
     return pcs_card, b_card
 
 
+def messages_phase(dev) -> None:
+    """Drive ``sha256.sha256_words``, the package's entry for hashing whole
+    messages (no prove calls it: the trees hash their payload in place), and
+    hold a sample of its digests against hashlib."""
+    rng = np.random.default_rng(4000)
+    msg = rng.integers(0, 2**32, size=MESSAGES_SHAPE, dtype=np.uint32)
+    reset_counts()
+    digests = sha256.digests_to_bytes(sha256.sha256_words(torch.from_numpy(msg.view(np.int32)).to(dev)))
+    PATH_LAUNCHES[MESSAGES_PATH] = launch_counts()
+    be = msg.astype(">u4")
+    sample = list(range(0, MESSAGES_SHAPE[0], 65521))
+    ok = all(digests[i].tobytes() == hashlib.sha256(be[i].tobytes()).digest() for i in sample)
+    emit("messages", path=MESSAGES_PATH, checked_against_hashlib=len(sample), ok=ok)
+    if not ok:
+        raise RuntimeError("sha256_words disagrees with hashlib")
+
+
 def reject_phase(kind: str, proof_bytes: bytes, from_bytes) -> None:
     from_bytes(proof_bytes).verify(Transcript())
     bad = bytearray(proof_bytes)
@@ -834,8 +1256,24 @@ def main() -> int:
     emit("build", seconds=_build.build_seconds, registers=dict(regs),
          max_spill_store_bytes=max([int(s) for s in spills], default=0))
 
+    # the two factors of every operation bound, from this card and this build
+    PEAK.update(integer_rate(dev))
+    counted = count_primitive_ops()
+    OPS.update(counted["ops"])
+    spent = {}
+    for stem in ("sha256_words", "sha256_leaves", "merkle_levels", "prev_sha256_words", "fold_commit",
+                 "mul", "kron", "twiddle_mul3", "zm"):
+        for fn, c in sass_int_ops(_build.library_paths[stem]).items():
+            spent[f"{stem}:{fn}"] = {k: c[k] for k in ("alu", "fma", "either", "int", "all")}
+    emit("bounds", peak_bytes_per_s=PEAK_BYTES_PER_S, **PEAK,
+         primitive_int_ops={k: dict(zip(("alu_only", "multiply_only", "either", "bound_share_of_sum"),
+                                        [*v.tolist(), ops_time_ms(v) / ops_time_ms([v.sum(), 0, 0])]))
+                            for k, v in OPS.items()},
+         command="cuobjdump -sass multilinear_tpu_torch/build/libopcount-*.so",
+         probes=counted["probes"], kernels_as_built=spent, clocks=clock_under_load(dev))
+
     timed = kernels_phase(dev)
-    routes_phase(dev, log_sizes[-1])
+    routes_phase(dev, log_sizes[-1], batched_sizes[-1])
     pcs_phase(dev, log_sizes)
     batched_pcs_phase(dev, batched_sizes)
     if args.profile:
@@ -851,11 +1289,13 @@ def main() -> int:
     pcs_bytes, batched_bytes = parity_phase(dev)
     reject_phase("pcs", pcs_bytes, pcs_proof_from_bytes)
     reject_phase("batched_pcs", batched_bytes, batched_pcs_proof_from_bytes)
+    messages_phase(dev)
 
-    # the main paths: the largest PCS prove, the largest batched prove, and
-    # the tiny proves that reach the single-stage butterfly
+    # the driven paths: the largest PCS prove, the largest batched prove, the
+    # tiny proves that reach the single-stage butterfly, and the message-
+    # hashing entry, which no prove calls
     main_paths = [f"pcs 2^{log_sizes[-1]}", f"batched pcs {BATCH_POLYS} x 2^{batched_sizes[-1]}",
-                  "pcs 2^1, 2^2, 2^3"]
+                  "pcs 2^1, 2^2, 2^3", MESSAGES_PATH]
     kernels = []
     for name, meta in KERNELS.items():
         row = timed[name]
@@ -865,14 +1305,14 @@ def main() -> int:
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": None, "shapes": row["shapes"],
+            "library_ms": None, "shapes": row["shapes"], "bound_share": row["bound_share"],
         })
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:
         raise RuntimeError(f"kernels never launched on a driven path: {idle}")
-    print(json.dumps({"kernels": kernels, "main_paths": main_paths,
-                      "sha256_words_80_words": {k: timed["sha256_words/80"][k] for k in
-                                                ("kernel_ms", "plain_ms", "bound_ms", "bound_by", "shapes")}}),
+    other = {key: {k: row[k] for k in ("case", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "shapes")}
+             for key, row in timed.items() if "/" in key}
+    print(json.dumps({"kernels": kernels, "main_paths": main_paths, "other_timed_shapes": other}),
           flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

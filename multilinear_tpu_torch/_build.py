@@ -45,20 +45,30 @@ KERNELS = {
     "mlt_mul": ("mul", _elementwise),
     "mlt_add": ("addsub", _elementwise),
     "mlt_sub": ("addsub", _elementwise),
-    "mlt_sha256_words": ("sha256_words", [_p, _p, _i64, _int, _int, _p]),
+    "mlt_sha256_messages": ("sha256_words", [_p, _p, _i64, _int, _int, _p]),
+    "mlt_sha256_leaves": ("sha256_leaves", [_p, _i64, _i64, _p, _i64, _int, _int, _p]),
+    "mlt_merkle_levels": ("merkle_levels", [_p, _p, _i64, _int, _int, _int, _p]),
     "mlt_butterfly": ("butterfly", [_p, _p, _p, _p, _i64, _i64, _i64, _i64, _int, _p]),
     "mlt_butterfly_notw": ("butterfly", [_p, _p, _p, _i64, _i64, _i64, _i64, _int, _p]),
     "mlt_butterfly2": ("butterfly2", [_p, _p, _p, _i64, _i64, _i64, _int, _i64, _int, _p]),
     "mlt_twiddle_mul3": ("twiddle_mul3", [_p, _p, _p, _p, _i64, _i64, _i64, _int, _int, _p]),
     "mlt_kron": ("kron", [_p, _p, _p, _i64, _i64, _int, _p]),
-    "mlt_zm": ("zm", [_p, _i64, _i64, _int, _int, _int, _int, _p]),
+    "mlt_zm_tiles": ("zm", [_p, _p, _i64, _int, _int, _int, _int, _int, _i64, _int, _int, _p]),
     "mlt_fold": ("fold", [_p, _p, _p, _i64, _i64, _u64, _u64, _int, _p]),
     "mlt_fold_commit": ("fold_commit", [_p, _p, _p, _p, _i64, _i64, _u64, _u64, _int, _p]),
+    # the kernels that sha256_leaves / merkle_levels / zm replaced, bound only
+    # for previous_routes.py (the smoke script's comparison of routes)
+    "mlt_sha256_words": ("prev_sha256_words", [_p, _p, _i64, _int, _int, _p]),
+    "mlt_zm": ("prev_zm", [_p, _i64, _i64, _int, _int, _int, _int, _p]),
 }
-SOURCES = sorted({stem for stem, _ in KERNELS.values()})
+# Built with the kernels but never loaded: probe kernels whose machine code
+# the smoke script reads to count the instructions of each primitive.
+PROBES = ("opcount",)
+SOURCES = sorted({stem for stem, _ in KERNELS.values()} | set(PROBES))
 
 _lock = threading.Lock()
 _fns = None
+library_paths: dict = {}  # source stem -> built shared library, set by lib()
 build_seconds = None  # wall time of the build+load that populated _fns
 build_log = ""  # nvcc's output (ptxas -v: registers, spills) of that build
 
@@ -121,7 +131,8 @@ def lib() -> dict:
             key = _key()
             paths = {s: os.path.join(BUILD_DIR, f"lib{s}-{key}.so") for s in SOURCES}
             build_log = _build_missing(paths)
-            libs = {s: ctypes.CDLL(path) for s, path in paths.items()}
+            library_paths.update(paths)
+            libs = {s: ctypes.CDLL(path) for s, path in paths.items() if s not in PROBES}
             fns = {}
             for symbol, (stem, argtypes) in KERNELS.items():
                 fn = getattr(libs[stem], symbol)

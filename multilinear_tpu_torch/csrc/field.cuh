@@ -40,12 +40,28 @@ __device__ __forceinline__ void fp_store(void* base, long long i, fp v) {
   reinterpret_cast<uint4*>(base)[i] = w;
 }
 
+// Additions and subtractions run as carry chains (add.cc / addc, sub.cc /
+// subc): four 32-bit instructions for 128 bits and one more for the carry
+// out, where compares and selects of 64-bit halves take about twice as many.
+// A host compiler (the sources also build without nvcc for checks of the
+// index arithmetic) takes the plain C forms.
+
 // v + K over 128 bits; returns the carry out of bit 127.
 __device__ __forceinline__ u64 fp_add_k(fp v, fp& out) {
+  u64 c;
+#ifdef __CUDA_ARCH__
+  asm("add.cc.u64 %0, %3, %5;\n\t"
+      "addc.cc.u64 %1, %4, 0;\n\t"
+      "addc.u64 %2, 0, 0;"
+      : "=l"(out.lo), "=l"(out.hi), "=l"(c)
+      : "l"(v.lo), "l"(v.hi), "l"(FP_K));
+#else
   out.lo = v.lo + FP_K;
-  u64 c = out.lo < v.lo;
-  out.hi = v.hi + c;
-  return out.hi < c;
+  u64 c0 = out.lo < v.lo;
+  out.hi = v.hi + c0;
+  c = out.hi < c0;
+#endif
+  return c;
 }
 
 // carry * 2^128 + v, known to be < 2p, into [0, p): the value is >= p
@@ -59,16 +75,40 @@ __device__ __forceinline__ fp fp_canon(fp v, u64 carry) {
 
 __device__ __forceinline__ fp fp_add(fp a, fp b) {
   fp s;
+  u64 c;
+#ifdef __CUDA_ARCH__
+  asm("add.cc.u64 %0, %3, %5;\n\t"
+      "addc.cc.u64 %1, %4, %6;\n\t"
+      "addc.u64 %2, 0, 0;"
+      : "=l"(s.lo), "=l"(s.hi), "=l"(c)
+      : "l"(a.lo), "l"(a.hi), "l"(b.lo), "l"(b.hi));
+#else
   s.lo = a.lo + b.lo;
   u64 c0 = s.lo < a.lo;
   u64 h = a.hi + b.hi;
-  u64 c1 = h < a.hi;
+  c = h < a.hi;
   s.hi = h + c0;
-  c1 |= s.hi < c0;
-  return fp_canon(s, c1);
+  c |= s.hi < c0;
+#endif
+  return fp_canon(s, c);
 }
 
 __device__ __forceinline__ fp fp_sub(fp a, fp b) {
+  // a < b: the true value is d - 2^128, and adding p gives d - K
+#ifdef __CUDA_ARCH__
+  fp d, e;
+  u64 m;  // all ones when the subtraction borrowed
+  asm("sub.cc.u64 %0, %3, %5;\n\t"
+      "subc.cc.u64 %1, %4, %6;\n\t"
+      "subc.u64 %2, 0, 0;"
+      : "=l"(d.lo), "=l"(d.hi), "=l"(m)
+      : "l"(a.lo), "l"(a.hi), "l"(b.lo), "l"(b.hi));
+  asm("sub.cc.u64 %0, %2, %4;\n\t"
+      "subc.u64 %1, %3, 0;"
+      : "=l"(e.lo), "=l"(e.hi)
+      : "l"(d.lo), "l"(d.hi), "l"(FP_K & m));
+  return e;
+#else
   fp d;
   d.lo = a.lo - b.lo;
   u64 b0 = a.lo < b.lo;
@@ -76,11 +116,11 @@ __device__ __forceinline__ fp fp_sub(fp a, fp b) {
   u64 b1 = a.hi < b.hi;
   d.hi = h - b0;
   b1 |= h < b0;
-  // a < b: the true value is d - 2^128, and adding p gives d - K
   fp e;
   e.lo = d.lo - FP_K;
   e.hi = d.hi - (u64)(d.lo < FP_K);
   return b1 ? e : d;
+#endif
 }
 
 // a / 2: a >> 1 for even a, (a >> 1) + (p+1)/2 for odd a (exact, < p).

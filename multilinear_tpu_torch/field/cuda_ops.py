@@ -16,7 +16,9 @@ Kernels (sources under ``csrc/``):
 * ``butterfly2``         - two Pease stages in one pass     (csrc/butterfly2.cu)
 * ``twiddle_mul3``       - four-step twiddle, one pass      (csrc/twiddle_mul3.cu)
 * ``kron_mul``           - tensor product of two vectors    (csrc/kron.cu)
-* ``zm_butterfly``       - zeta / Moebius, many bits a pass (csrc/zm.cu)
+* ``zm_butterfly``       - zeta / Moebius, many bits a pass (csrc/zm.cu);
+  ``zm_bitrev_pad`` is the same kernel with the encode's bit reversal and
+  zero padding in its last store
 * ``fold_codeword``      - FRI fold                         (csrc/fold.cu)
 * ``fold_commit_leaves`` - FRI fold + pair-leaf SHA-256     (csrc/fold_commit.cu)
 
@@ -423,19 +425,42 @@ def kron_mul(a: torch.Tensor, b: torch.Tensor, out: Optional[torch.Tensor] = Non
 # zm_butterfly: zeta / Moebius transform, many index bits per pass
 # ---------------------------------------------------------------------------
 
-_ZM_TILE_BITS = 11  # the kernel's shared-memory tile: 2^11 elements, 32 KiB
-_ZM_HIGH_BITS = 9  # bits per pass above the first: 2^9 rows of >= 4 elements
+_ZM_TILE_BITS = 13  # the kernel's larger shared-memory tile: 2^13 elements, 144 KiB with padding
+_ZM_MIN_RUN_BITS = 2  # later passes keep runs of 2^2 adjacent elements (64 bytes)
+_ZM_MIN_LATER_BITS = 3  # and take at least 3 bits (the kernel wants w <= tile_bits - 3)
 
 
-def zm_passes(bits: int):
-    """The (first bit, bit count, log2 tile width) of each kernel pass of a
-    transform over ``bits`` index bits: the low 11 bits as tiles of
-    consecutive elements, then up to 9 bits a pass as tiles of 2^c rows by
-    2^(11-c) adjacent elements."""
+def zm_tile_bits(bits: int) -> int:
+    """The tile a transform over ``bits`` index bits runs with: 2^13
+    elements (one block a multiprocessor) where that saves a pass over device
+    memory - 13 bits, and 23 or 24, which are 13 + 10 or 11 - and else 2^12
+    (two blocks a multiprocessor, whose loads, butterflies and stores
+    overlap): measured faster at 10 x 2^22, slower at 2^24."""
+    small = _ZM_TILE_BITS - 1
+    return small if len(zm_passes(bits, small)) == len(zm_passes(bits, _ZM_TILE_BITS)) else _ZM_TILE_BITS
+
+
+def zm_passes(bits: int, tile_bits: Optional[int] = None):
+    """The (first bit d, bit count c, log2 run width w) of each kernel pass
+    of a transform over ``bits`` index bits: the low ``tile_bits`` bits as
+    tiles of consecutive elements, then up to ``tile_bits - 2`` bits a pass
+    as tiles of 2^c rows, 2^d elements apart, by 2^w = 2^(tile_bits - c)
+    adjacent elements.  ``tile_bits``: 12 or 13, by default what
+    :func:`zm_tile_bits` picks for this size."""
+    if tile_bits is None:
+        tile_bits = zm_tile_bits(bits)
+    counts, left = [], bits
+    while left:
+        counts.append(min(tile_bits - _ZM_MIN_RUN_BITS if counts else tile_bits, left))
+        left -= counts[-1]
+    # a later pass takes at least 3 bits (its rows then split evenly over the
+    # block's threads): it borrows them from the pass before it
+    if len(counts) > 1 and counts[-1] < _ZM_MIN_LATER_BITS:
+        counts[-2] -= _ZM_MIN_LATER_BITS - counts[-1]
+        counts[-1] = _ZM_MIN_LATER_BITS
     passes, d = [], 0
-    while d < bits:
-        c = min(_ZM_HIGH_BITS if d else _ZM_TILE_BITS, bits - d)
-        passes.append((d, c, _ZM_TILE_BITS - c if d else 0))
+    for c in counts:
+        passes.append((d, c, tile_bits - c if d else 0))
         d += c
     return passes
 
@@ -451,25 +476,85 @@ def zm_butterfly_plain(x: torch.Tensor, add: bool) -> torch.Tensor:
     return x
 
 
-def zm_butterfly(x: torch.Tensor, add: bool) -> torch.Tensor:
-    """hi <- hi + lo (``add``: zeta transform) or hi <- hi - lo (Moebius
-    transform) for EVERY bit of the value index of x, (n, 4) or
-    (batch, n, 4) with n a power of two.  Returns a new tensor."""
-    _check_field("zm_butterfly: x", x)
+def zm_bitrev_pad_plain(x: torch.Tensor, add: bool, log_blowup: int) -> torch.Tensor:
+    """Plain version of :func:`zm_bitrev_pad`: the transform, a bit-reversal
+    gather, and a copy into a zeroed tensor of the padded length."""
+    from ..mle import bit_reverse
+
+    y = bit_reverse(zm_butterfly_plain(x, add))
+    n = x.shape[-2]
+    out = torch.zeros(x.shape[:-2] + (n << log_blowup, 4), dtype=torch.int32, device=x.device)
+    out[..., :n, :] = y
+    return out
+
+
+def _check_zm(name: str, x: torch.Tensor) -> int:
+    _check_field(f"{name}: x", x)
     if x.dim() not in (2, 3):
-        raise ValueError(f"zm_butterfly: expected (n, 4) or (batch, n, 4), got {tuple(x.shape)}")
+        raise ValueError(f"{name}: expected (n, 4) or (batch, n, 4), got {tuple(x.shape)}")
     n = x.shape[-2]
     bits = n.bit_length() - 1
     if n < 1 or 1 << bits != n:
-        raise ValueError("zm_butterfly: size must be a power of two")
+        raise ValueError(f"{name}: size must be a power of two")
+    _check_count(name, x.numel() // 4)
+    return bits
+
+
+def _zm_launches(x: torch.Tensor, add: bool, out: torch.Tensor, reverse: bool,
+                 tile_bits: Optional[int] = None) -> None:
+    """Run the passes of one transform of contiguous ``x`` into ``out``: the
+    first pass reads ``x``, later passes run in place on what it wrote; with
+    ``reverse`` the last pass stores element i of each transform at
+    bitrev(i) of ``out``'s (longer) value axis."""
+    n, total = x.shape[-2], x.numel() // 4
+    bits = n.bit_length() - 1
+    if tile_bits is None:
+        tile_bits = zm_tile_bits(bits)
+    passes = zm_passes(bits, tile_bits)
+    work = torch.empty_like(x) if reverse and len(passes) > 1 else out
+    src = x
+    for k, (d, c, log_w) in enumerate(passes):
+        last = reverse and k == len(passes) - 1
+        dst = out if last else work
+        _launch("zm_butterfly", "mlt_zm_tiles", x.device, src.data_ptr(), dst.data_ptr(), total,
+                d, c, log_w, int(add), bits if last else 0, out.shape[-2] if last else 0, tile_bits)
+        src = dst
+
+
+def zm_butterfly(x: torch.Tensor, add: bool) -> torch.Tensor:
+    """hi <- hi + lo (``add``: zeta transform) or hi <- hi - lo (Moebius
+    transform) for EVERY bit of the value index of x, (n, 4) or
+    (batch, n, 4) with n a power of two.  Returns a new tensor; the first
+    kernel pass writes it, so ``x`` is not copied first."""
+    bits = _check_zm("zm_butterfly", x)
     if x.device.type == "cpu":
         return zm_butterfly_plain(x, add)
-    total = x.numel() // 4
-    _check_count("zm_butterfly", total)
-    x = x.clone()
-    for d, c, log_w in zm_passes(bits) if total else ():
-        _launch("zm_butterfly", "mlt_zm", x.device, x.data_ptr(), total, 1 << d, c, log_w, int(add))
-    return x
+    if bits == 0 or x.numel() == 0:
+        return x.clone()
+    out = torch.empty_like(x)
+    _zm_launches(x, add, out, reverse=False)
+    return out
+
+
+def zm_bitrev_pad(x: torch.Tensor, add: bool, log_blowup: int) -> torch.Tensor:
+    """The transform of :func:`zm_butterfly`, bit-reversed along the value
+    axis and zero-padded to ``n << log_blowup`` values, in the kernel's own
+    last store: (..., n, 4) -> (..., n << log_blowup, 4) with
+    out[..., bitrev(i), :] = transform(x)[..., i, :] and zeros above n."""
+    bits = _check_zm("zm_bitrev_pad", x)
+    if not 0 <= log_blowup <= 8:
+        raise ValueError(f"zm_bitrev_pad: log_blowup {log_blowup} out of range")
+    if x.device.type == "cpu":
+        return zm_bitrev_pad_plain(x, add, log_blowup)
+    n = x.shape[-2]
+    out = torch.empty(x.shape[:-2] + (n << log_blowup, 4), dtype=torch.int32, device=x.device)
+    if log_blowup:
+        out[..., n:, :].zero_()
+    if bits == 0 or x.numel() == 0:
+        out[..., :n, :] = x
+        return out
+    _zm_launches(x, add, out, reverse=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -524,13 +609,10 @@ def fold_codeword(code: torch.Tensor, tw_table: torch.Tensor, tw_stride: int, rh
 
 
 def fold_commit_leaves_plain(code, tw_table, tw_stride: int, rh: int):
-    from ..sha256 import limbs_to_words
-    from ..sha256_cuda import sha256_words_plain
+    from ..sha256_cuda import leaf_hashes_plain
 
     nxt = fold_codeword_plain(code, tw_table, tw_stride, rh)
-    q = nxt.shape[0] // 2
-    msg = torch.cat([limbs_to_words(nxt[:q]), limbs_to_words(nxt[q:])], dim=-1)
-    return nxt, sha256_words_plain(msg)
+    return nxt, leaf_hashes_plain(nxt.view(2, nxt.shape[0] // 2, 4))
 
 
 def fold_commit_leaves(code: torch.Tensor, tw_table: torch.Tensor, tw_stride: int, rh: int):

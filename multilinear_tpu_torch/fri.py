@@ -8,8 +8,9 @@ absorption (quirk Q5), and the redundant ``last_random`` transcript
 fingerprint checked at the end.
 
 Every fold step that commits is one launch of the fused
-``fold_commit_leaves`` kernel (fold + leaf hashes) followed by one
-``sha256_words`` launch per tree level; the last fold of a chain, which
+``fold_commit_leaves`` kernel (fold + leaf hashes) followed by the
+``merkle_levels`` launches of the tree above them (up to eleven levels a
+launch); the last fold of a chain, which
 commits nothing, is one launch of ``fold_codeword``.  The codeword stays on
 the device down to its last two elements: the kernels mask their own ragged
 edge, so there is no host tail.  Queries gather all 128 openings of all
@@ -28,8 +29,8 @@ from .config import LOG_BLOWUP, NUM_QUERIES
 from .field import cuda_ops, limbs, ops
 from .field.scalar import Fp, P, TWO_INV, pow2_generator
 from .merkle import MerklePath, MerkleTree, tree_levels
-from .mle import bit_reverse, to_coeffs
-from .ntt import inv_gen_pows, reed_solomon
+from .mle import to_coeffs_bitrev_padded
+from .ntt import fourstep_transform, inv_gen_pows
 from .transcript import Transcript
 
 
@@ -330,6 +331,12 @@ def encode_mle_for_fri(evals: torch.Tensor) -> torch.Tensor:
 
     The coefficient bit-reversal aligns FRI's even/odd low-bit split with
     sumcheck's MSB top/bottom-half fold (reference
-    multilinear_pcs.rs:101-107, Q8).
+    multilinear_pcs.rs:101-107, Q8).  The Moebius kernel's last pass writes
+    the coefficients bit-reversed into the zero-padded tensor that the
+    transform over the codeword's domain reads: the same values as
+    ``reed_solomon(bit_reverse(to_coeffs(evals)))``.
     """
-    return reed_solomon(bit_reverse(to_coeffs(evals)))
+    log_m = evals.shape[-2].bit_length() - 1 + LOG_BLOWUP
+    # the padded tensor is handed on without a name here, so that the
+    # transform's first step can free it
+    return fourstep_transform(to_coeffs_bitrev_padded(evals, LOG_BLOWUP), pow2_generator(log_m).v, log_m)

@@ -4,16 +4,18 @@ Capability parity with reference src/merkle_tree/mod.rs (commit, open,
 verify; no leaf/node domain separation; Direction-encoded paths whose
 directions also re-derive the leaf index on verify):
 
-* every tree level is hashed in one ``sha256_words`` pass, leaves included;
+* the leaf level is hashed from the payload where it lies (``leaf_hashes``:
+  no byte-swapped copy, no concatenated messages), and the levels above it
+  several to a launch (``tree_levels``), all slices of one allocation;
 * the digest levels stay on the device; opening gathers the leaf payloads
   and sibling digests of ALL queries of ALL trees into one tensor, so the
   query phase costs one device->host copy;
 * path verification is host-side hashlib (it is O(queries * log n)).
 
-Levels are stored in NATURAL order: level l+1's message batch is level l
-viewed as (n/2, 16) words, a zero-copy reshape in this layout.  (The JAX
-package stores upper levels bit-reversed to dodge an XLA tiling cost; roots
-and opened paths are identical either way.)
+Levels are stored in NATURAL order: the children of digest i of level l+1
+are digests 2i and 2i+1 of level l.  (The JAX package stores upper levels
+bit-reversed to dodge an XLA tiling cost; roots and opened paths are
+identical either way.)
 
 Leaf payloads are field-element vectors: a leaf's message bytes are the
 concatenated 16-LE-byte encodings of its elements (reference
@@ -32,30 +34,13 @@ import torch
 from . import stats
 from .field import limbs
 from .field.scalar import Fp
-from .sha256 import digests_to_bytes, limbs_to_words, sha256_words
+from .sha256 import digests_to_bytes
+from .sha256_cuda import leaf_hashes, leaf_hashes_plain, tree_levels, tree_levels_plain  # noqa: F401
 
 # Direction encoding, matching the reference enum (src/merkle_tree/mod.rs:13-18):
 # the direction tells where the SIBLING sits relative to the path node.
 RIGHT = 0  # current index even: sibling is the right child
 LEFT = 1  # current index odd:  sibling is the left child
-
-
-def tree_levels(leaf_digests: torch.Tensor) -> List[torch.Tensor]:
-    """All levels above (n, 8) leaf digests, root last."""
-    levels = []
-    cur = leaf_digests
-    while cur.shape[0] > 1:
-        cur = sha256_words(cur.reshape(cur.shape[0] // 2, 16))
-        levels.append(cur)
-    return levels
-
-
-def leaf_hashes(leaf_columns: torch.Tensor) -> torch.Tensor:
-    """(B, n, 4) leaf payload columns -> (n, 8) leaf digests; leaf i's
-    message is the B elements' byte encodings concatenated."""
-    B = leaf_columns.shape[0]
-    msg = torch.cat([limbs_to_words(leaf_columns[b]) for b in range(B)], dim=-1)
-    return sha256_words(msg)
 
 
 class MerkleTree:

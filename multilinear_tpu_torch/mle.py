@@ -41,6 +41,13 @@ def to_coeffs(evals: torch.Tensor) -> torch.Tensor:
     return cuda_ops.zm_butterfly(evals, add=False)
 
 
+def to_coeffs_bitrev_padded(evals: torch.Tensor, log_blowup: int) -> torch.Tensor:
+    """``bit_reverse(to_coeffs(evals))`` zero-padded to ``n << log_blowup``
+    values: what the Reed-Solomon encode reads.  On the card the Moebius
+    kernel's last pass stores it so; no gather and no padded copy run."""
+    return cuda_ops.zm_bitrev_pad(evals, add=False, log_blowup=log_blowup)
+
+
 def bit_reverse(x: torch.Tensor) -> torch.Tensor:
     """Bit-reverse permutation along the value axis of an (n, 4) or
     (B, n, 4) tensor (reference src/ntt/mod.rs:113-123)."""

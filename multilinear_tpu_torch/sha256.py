@@ -25,14 +25,7 @@ def sha256_words(msg_words: torch.Tensor) -> torch.Tensor:
     return sha256_cuda.sha256_words(msg_words)
 
 
-def limbs_to_words(a: torch.Tensor) -> torch.Tensor:
-    """S+(4,) field tensor -> S+(4,) big-endian SHA message words.
-
-    Hashing an element means hashing its 16 little-endian bytes (quirk Q9);
-    read as big-endian words, that is a byte swap of each 32-bit limb.
-    """
-    b = a.contiguous().view(torch.uint8).reshape(a.shape + (4,))
-    return b.flip(-1).contiguous().view(torch.int32).reshape(a.shape)
+limbs_to_words = sha256_cuda.limbs_to_words
 
 
 def digests_to_bytes(words) -> np.ndarray:

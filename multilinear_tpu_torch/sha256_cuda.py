@@ -1,8 +1,18 @@
-"""The SHA-256 CUDA kernel's wrapper, plain version and launch counter.
+"""The SHA-256 CUDA kernels' wrappers, plain versions and launch counters.
 
-Counterpart of the JAX package's ``sha256_pallas.py``.  A CUDA tensor
-launches ``csrc/sha256_words.cu`` (one message per thread, padding built
-in-kernel) or raises; a CPU tensor runs the plain tensor-code version.
+Counterpart of the JAX package's ``sha256_pallas.py``.  Three kernels share
+one compression (``csrc/sha256.cuh``):
+
+* ``sha256_words``  - N contiguous big-endian messages, one per thread
+  (``csrc/sha256_words.cu``);
+* ``leaf_hashes``   - Merkle leaf digests of ``(B, n, 4)`` field-element
+  columns read where they lie, bytes swapped in registers
+  (``csrc/sha256_leaves.cu``, counted as ``sha256_leaves``);
+* ``tree_levels``   - every level above the leaf digests, up to eleven
+  levels a launch (``csrc/merkle_levels.cu``, counted as ``merkle_levels``).
+
+A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
+tensor-code version beside each wrapper.
 """
 
 from __future__ import annotations
@@ -28,7 +38,7 @@ _H0 = [
 ]
 _M32 = 0xFFFFFFFF
 
-_LAUNCHES = {"sha256_words": 0}
+_LAUNCHES = {"sha256_words": 0, "sha256_leaves": 0, "merkle_levels": 0}
 
 
 def launch_counts() -> dict:
@@ -36,7 +46,22 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
-    _LAUNCHES["sha256_words"] = 0
+    for k in _LAUNCHES:
+        _LAUNCHES[k] = 0
+
+
+def _launch(kernel: str, symbol: str, device: torch.device, *args) -> None:
+    """Enqueue one kernel on PyTorch's current stream of ``device``."""
+    from . import _build
+
+    rc = _build.lib()[symbol](
+        *args,
+        device.index if device.index is not None else torch.cuda.current_device(),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {kernel} failed to launch (cudaError {rc})")
+    _LAUNCHES[kernel] += 1
 
 
 def n_blocks(n_words: int) -> int:
@@ -99,17 +124,141 @@ def sha256_words(msg_words: torch.Tensor) -> torch.Tensor:
         return sha256_words_plain(msg_words)
     if dev.type != "cuda":
         raise ValueError(f"sha256_words: unsupported device {dev}")
-    from . import _build
-
     n, n_words = msg_words.shape
     out = torch.empty((n, 8), dtype=torch.int32, device=dev)
     if n:
-        rc = _build.lib()["mlt_sha256_words"](
-            msg_words.data_ptr(), out.data_ptr(), n, n_words,
-            dev.index if dev.index is not None else torch.cuda.current_device(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-        if rc != 0:
-            raise RuntimeError(f"CUDA kernel sha256_words failed to launch (cudaError {rc})")
-        _LAUNCHES["sha256_words"] += 1
+        _launch("sha256_words", "mlt_sha256_messages", dev,
+                msg_words.data_ptr(), out.data_ptr(), n, n_words)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Merkle leaves: field-element columns hashed in place
+# ---------------------------------------------------------------------------
+
+
+def limbs_to_words(a: torch.Tensor) -> torch.Tensor:
+    """S+(4,) field tensor -> S+(4,) big-endian SHA message words.
+
+    Hashing an element means hashing its 16 little-endian bytes (quirk Q9);
+    read as big-endian words, that is a byte swap of each 32-bit limb.
+    """
+    b = a.contiguous().view(torch.uint8).reshape(a.shape + (4,))
+    return b.flip(-1).contiguous().view(torch.int32).reshape(a.shape)
+
+
+def leaf_hashes_plain(leaf_columns: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`leaf_hashes`: swap each limb's bytes,
+    concatenate the columns into messages, hash the messages."""
+    B = leaf_columns.shape[0]
+    msg = torch.cat([limbs_to_words(leaf_columns[b]) for b in range(B)], dim=-1)
+    return sha256_words_plain(msg)
+
+
+def leaf_hashes(leaf_columns: torch.Tensor) -> torch.Tensor:
+    """(B, n, 4) leaf payload columns -> (n, 8) leaf digests; leaf i's
+    message is the B elements' 16-byte little-endian encodings concatenated.
+
+    The columns are read through their strides (a pair view of a codeword,
+    the batch tree's view of B codewords, a slice): every element must be a
+    whole 16-byte-aligned unit."""
+    t = leaf_columns
+    if not isinstance(t, torch.Tensor) or t.dtype != torch.int32:
+        raise TypeError("leaf_hashes: expected an int32 tensor")
+    if t.dim() != 3 or t.shape[0] < 1 or t.shape[2] != 4:
+        raise ValueError(f"leaf_hashes: expected (B, n, 4), got {tuple(t.shape)}")
+    dev = t.device
+    if dev.type == "cpu":
+        return leaf_hashes_plain(t)
+    if dev.type != "cuda":
+        raise ValueError(f"leaf_hashes: unsupported device {dev}")
+    return _leaf_hashes_launch(t)
+
+
+def _leaf_hashes_launch(t: torch.Tensor) -> torch.Tensor:
+    B, n, _ = t.shape
+    sb, sn, s1 = t.stride()
+    if n and (s1 != 1 or sb % 4 or sn % 4 or t.data_ptr() % 16):
+        raise ValueError("leaf_hashes: elements must be whole 16-byte-aligned units")
+    out = torch.empty((n, 8), dtype=torch.int32, device=t.device)
+    if n:
+        _launch("sha256_leaves", "mlt_sha256_leaves", t.device,
+                t.data_ptr(), sb // 4, sn // 4, out.data_ptr(), n, B)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Merkle inner levels: several levels a launch
+# ---------------------------------------------------------------------------
+
+# A block of the kernel takes 512 child digests (9 levels a launch) or 2048
+# (11 levels, less of the block idle in its thin upper levels).  The wide
+# block has a quarter of the blocks, so it needs a level large enough to fill
+# the card with them: on an H100 it is the faster one from 2^18 digests up
+# and the slower one below (chip_smoke.py's routes phase times both on trees
+# of 2^10 to 2^22 digests).  A level of 2^10 or 2^11 digests takes it all the
+# same, because one wide block finishes that tree in one launch.
+_NARROW_SPAN_BITS = 9
+_WIDE_SPAN_BITS = 11
+_WIDE_FROM_BITS = 18
+
+
+def levels_plan(n_leaves: int):
+    """The launches that hash every level above ``n_leaves`` leaf digests:
+    a list of (digests read, levels written, 1 or 4 parents a thread).  A
+    level that fits one block finishes the tree in that launch."""
+    bits = n_leaves.bit_length() - 1
+    if n_leaves < 1 or 1 << bits != n_leaves:
+        raise ValueError("tree_levels: leaf count must be a power of two")
+    plan = []
+    while bits:
+        wide = bits >= _WIDE_FROM_BITS or _NARROW_SPAN_BITS < bits <= _WIDE_SPAN_BITS
+        k = min(bits, _WIDE_SPAN_BITS if wide else _NARROW_SPAN_BITS)
+        plan.append((1 << bits, k, 4 if wide else 1))
+        bits -= k
+    return plan
+
+
+def tree_levels_plain(leaf_digests: torch.Tensor):
+    """Plain version of :func:`tree_levels`: one hash pass per level."""
+    levels = []
+    cur = leaf_digests
+    while cur.shape[0] > 1:
+        cur = sha256_words_plain(cur.reshape(cur.shape[0] // 2, 16))
+        levels.append(cur)
+    return levels
+
+
+def tree_levels(leaf_digests: torch.Tensor):
+    """All levels above (n, 8) leaf digests, root last: level j holds
+    n / 2^j digests, parent i = SHA-256(child 2i || child 2i+1).  On the card
+    the levels are slices of one allocation."""
+    t = leaf_digests
+    if not isinstance(t, torch.Tensor) or t.dtype != torch.int32:
+        raise TypeError("tree_levels: expected an int32 tensor")
+    if t.dim() != 2 or t.shape[1] != 8 or not t.is_contiguous():
+        raise ValueError(f"tree_levels: expected contiguous (n, 8) digests, got {tuple(t.shape)}")
+    n = t.shape[0]
+    plan = levels_plan(n)
+    dev = t.device
+    if dev.type == "cpu":
+        return tree_levels_plain(t)
+    if dev.type != "cuda":
+        raise ValueError(f"tree_levels: unsupported device {dev}")
+    return _tree_levels_launch(t, plan)
+
+
+def _tree_levels_launch(t: torch.Tensor, plan):
+    n = t.shape[0]
+    if n < 2:
+        return []
+    store = torch.empty((n - 1, 8), dtype=torch.int32, device=t.device)
+    levels, cur, off = [], t, 0
+    for n_in, k, per_thread in plan:
+        _launch("merkle_levels", "mlt_merkle_levels", t.device,
+                cur.data_ptr(), store[off:].data_ptr(), n_in, k, per_thread)
+        for j in range(1, k + 1):
+            levels.append(store[off : off + (n_in >> j)])
+            off += n_in >> j
+        cur = levels[-1]
+    return levels

@@ -73,9 +73,14 @@ def test_every_kernel_source_and_binding_is_present():
     for stem in _build.SOURCES:
         assert os.path.isfile(os.path.join(_build.CSRC, stem + ".cu")), stem
     assert {
-        "mul", "addsub", "sha256_words", "butterfly", "butterfly2", "twiddle_mul3", "kron", "zm",
-        "fold", "fold_commit",
+        "mul", "addsub", "sha256_words", "sha256_leaves", "merkle_levels", "butterfly", "butterfly2",
+        "twiddle_mul3", "kron", "zm", "fold", "fold_commit",
+        # the two replaced kernels, kept for the smoke script's comparison of
+        # routes, and the probe kernels whose instructions it counts
+        "prev_sha256_words", "prev_zm", "opcount",
     } == set(_build.SOURCES)
+    for symbol in ("mlt_sha256_messages", "mlt_sha256_leaves", "mlt_merkle_levels", "mlt_zm_tiles"):
+        assert symbol in _build.KERNELS, symbol
 
 
 def test_every_wrapper_names_a_bound_c_function():

@@ -90,18 +90,71 @@ def test_zm_input_is_left_untouched():
 @pytest.mark.parametrize("bits", [0, 1, 5, 11, 12, 20, 22, 24, 29])
 def test_zm_pass_plan_partitions_the_bits(bits):
     """Each pass's tile (2^c rows by 2^log_w adjacent elements) fits the
-    kernel's 2^11-element shared tile, and rows 2^d apart hold at least the
-    tile's width."""
+    kernel's shared tile (2^13 elements where that saves a pass, else 2^12),
+    and rows 2^d apart hold at least the tile's width."""
     passes = cuda_ops.zm_passes(bits)
+    tile = cuda_ops.zm_tile_bits(bits)
+    assert tile == (13 if bits in (13, 24) else 12)
     covered = []
     for d, c, log_w in passes:
-        assert c >= 1 and c + log_w <= 11
+        assert c >= 1 and c + log_w <= tile
         assert log_w <= d or log_w == 0
         if d:
             assert log_w >= 2, "runs of at least 64 bytes above the first pass"
+            assert c + log_w == tile, "a later pass fills the tile"
         covered += list(range(d, d + c))
     assert covered == list(range(bits))
-    assert len(passes) == {24: 3, 22: 3, 11: 1, 12: 2}.get(bits, len(passes))
+    assert len(passes) == {24: 2, 22: 2, 11: 1, 12: 1, 29: 3}.get(bits, len(passes))
+
+
+@pytest.mark.parametrize("bits", range(1, 27))
+def test_zm_pass_plan_covers_every_bit_once(bits):
+    for tile_bits in (12, 13):
+        passes = cuda_ops.zm_passes(bits, tile_bits)
+        assert sorted(b for d, c, _ in passes for b in range(d, d + c)) == list(range(bits))
+        assert all(c + w <= tile_bits and w <= d for d, c, w in passes)
+        assert len(passes) == (1 if bits <= tile_bits else 1 + -(-(bits - tile_bits) // (tile_bits - 2)))
+    assert len(cuda_ops.zm_passes(bits)) <= 2 or bits > 24
+
+
+@pytest.mark.parametrize("n_vars", range(1, 13))
+def test_bitrev_pad_mode_is_bit_reverse_of_to_coeffs_zero_padded(n_vars):
+    """The mode the encode uses: its plain version equals the port's own
+    ``bit_reverse(to_coeffs(x))`` followed by zero padding, and the JAX
+    package's ``mle.bit_reverse(mle.to_coeffs(x))``."""
+    n = 1 << n_vars
+    j, t = _both(_ints(n, 300 + n_vars))
+    for log_blowup in (0, 1, 2):
+        got = mle.to_coeffs_bitrev_padded(t, log_blowup) if log_blowup == 1 else \
+            cuda_ops.zm_bitrev_pad(t, False, log_blowup)
+        assert got.shape == (n << log_blowup, 4)
+        assert torch.equal(got[:n], mle.bit_reverse(mle.to_coeffs(t)))
+        assert not got[n:].any()
+        assert torch.equal(got, cuda_ops.zm_bitrev_pad_plain(t, False, log_blowup))
+    assert _same(got[:n], jmle.bit_reverse(jmle.to_coeffs(j)))
+    zeta = cuda_ops.zm_bitrev_pad(t, True, 1)
+    assert torch.equal(zeta[:n], mle.bit_reverse(mle.to_evals(t))) and not zeta[n:].any()
+
+
+def test_bitrev_pad_mode_on_a_batch_matches_jax():
+    j, t = _both(_ints(3 << 6, 311), shape=(3, 1 << 6))
+    got = mle.to_coeffs_bitrev_padded(t, 1)
+    assert got.shape == (3, 2 << 6, 4) and not got[:, 1 << 6 :].any()
+    assert _same(got[:, : 1 << 6].contiguous(), jmle.bit_reverse(jmle.to_coeffs(j)))
+    for k in range(3):
+        assert torch.equal(got[k], mle.to_coeffs_bitrev_padded(t[k].contiguous(), 1))
+    assert torch.equal(ntt.fourstep_transform(got, ntt.pow2_generator(7).v, 7), fri.encode_mle_for_fri(t))
+    assert _same(fri.encode_mle_for_fri(t), jntt.reed_solomon(jmle.bit_reverse(jmle.to_coeffs(j))))
+
+
+def test_bitrev_pad_mode_rejects_bad_arguments():
+    x = limbs.pack_ints(_ints(8, 1))
+    with pytest.raises(ValueError):
+        cuda_ops.zm_bitrev_pad(x[:6].contiguous(), False, 1)
+    with pytest.raises(ValueError):
+        cuda_ops.zm_bitrev_pad(x, False, -1)
+    with pytest.raises(ValueError):
+        cuda_ops.zm_bitrev_pad(torch.zeros((8, 4), dtype=torch.int32, device="meta"), False, 1)
 
 
 # -- kron_mul ----------------------------------------------------------------------
