@@ -13,7 +13,10 @@ port's main paths - a PCS prove and verify through ``PCSProof.prove`` /
 prove and verify through ``BatchedPCSProof.prove`` / ``.verify`` at 10 x 2^20
 and 10 x 2^22 - checks byte parity with the CPU path and the golden digests
 of both proof types, and checks that a corrupted proof of either type is
-rejected.
+rejected.  The rounds of a prove draw their challenges on the card: the
+largest prove of each type also runs its rounds under
+``torch.cuda.set_sync_debug_mode("error")``, and a prove that makes more
+device->host copies than ``MAX_D2H`` fails.
 
 Each phase prints one JSON line.  Near the end come one line
 ``{"kernels": [...]}`` with every kernel's launches on the driven paths
@@ -39,14 +42,15 @@ import numpy as np
 import torch
 
 from multilinear_tpu_torch import _build, fri, merkle, mle, ntt, previous_routes, sha256, sha256_cuda, stats
-from multilinear_tpu_torch.batched_pcs import BatchedPCSClaim, BatchedPCSProof
+from multilinear_tpu_torch import device_transcript as dtr
+from multilinear_tpu_torch.batched_pcs import BatchedPCSClaim, BatchedPCSProof, BatchedPCSProverSession
 from multilinear_tpu_torch.config import ProverConfig
 from multilinear_tpu_torch.field import cuda_ops, limbs, ops
 from multilinear_tpu_torch.field.scalar import Fp, P, pow2_generator
 from multilinear_tpu_torch.fri import FriError
 from multilinear_tpu_torch.mle import evaluate_evals_host
 from multilinear_tpu_torch.ntt import clear_caches, inv_gen_pows
-from multilinear_tpu_torch.pcs import PCSProof
+from multilinear_tpu_torch.pcs import PCSProof, PCSProverSession
 from multilinear_tpu_torch.serialize import (
     batched_pcs_proof_from_bytes,
     batched_pcs_proof_to_bytes,
@@ -162,6 +166,13 @@ KERNELS = {
     "fold_commit_leaves": {
         "source": "multilinear_tpu_torch/csrc/fold_commit.cu",
         "replaces": "multilinear_tpu/field/pallas_ops.py:794",
+    },
+    # the round's Fiat-Shamir scalars: jnp code inside the TPU's round
+    # program (`_round_scalars`, and the root absorb of `_pcs_round_body`),
+    # not a TPU kernel; a kernel here so that no round waits for the host
+    "round_scalars": {
+        "source": "multilinear_tpu_torch/csrc/round_scalars.cu",
+        "replaces": "multilinear_tpu/pcs.py:84",
     },
 }
 
@@ -316,12 +327,13 @@ def node_ops() -> np.ndarray:
 
 
 def launch_counts() -> dict:
-    return {**cuda_ops.launch_counts(), **sha256_cuda.launch_counts()}
+    return {**cuda_ops.launch_counts(), **sha256_cuda.launch_counts(), **dtr.launch_counts()}
 
 
 def reset_counts() -> None:
     cuda_ops.reset_launch_counts()
     sha256_cuda.reset_launch_counts()
+    dtr.reset_launch_counts()
     stats.reset()
 
 
@@ -363,11 +375,15 @@ def edge_pairs(device):
 def time_ms(fn, reps: int) -> float:
     """Mean device time of ``fn()`` over ``reps`` calls after one warm-up,
     by CUDA events.  The inputs are far larger than the 50 MB L2 cache, so
-    every call finds them cold."""
+    every call finds them cold.  One more call is queued before the start
+    event, so that the card is busy when it is recorded: the host's time to
+    enqueue the first timed call is not counted (for work that the host
+    enqueues faster than the card runs it)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    fn()
     start.record()
     for _ in range(reps):
         fn()
@@ -437,6 +453,72 @@ def check_kernel(name, label, kernel_fn, plain_fn, n_bytes, n_ops, shapes, timed
     if res["mismatches"]:
         raise RuntimeError(f"kernel {name} disagrees with its plain version: {row}")
     return row
+
+
+def round_scalars_cases(dev, rng, main: dict) -> list:
+    """The round-scalars kernel against its plain version on the card; the
+    timed row (main["round_scalars"]) is a round that absorbs a root, the
+    case of every PCS round, with its device time from a replayed CUDA graph
+    of back-to-back launches.  Its bound is its machine code's instruction
+    count (cuobjdump) at one instruction a clock: one thread, a chain of
+    dependent instructions."""
+    rows = []
+    lane_cases = ((1 << 55) - 1, 1 << 63, 1 << 32, 1)
+
+    def inputs(case: int):
+        host = Transcript()
+        host.absorb(rng.bytes(case % 64 + 64 * (case % 3)))
+        state = dtr.state_from_host(host, dev)
+        prev = (0, P - 1)[case % 2] if case % 5 == 0 else int.from_bytes(rng.bytes(16), "little") % P
+        scal = limbs.pack_ints([prev, 0, 0], device=dev)
+        hi = lane_cases[case % 4]
+        sums = torch.from_numpy(rng.integers(0, hi, size=(2, 4), dtype=np.uint64).astype(np.int64)).to(dev)
+        if case % 7 == 0:
+            sums[case % 2].fill_(0 if case % 14 else (1 << 63) - 1)
+        root = torch.from_numpy(rng.integers(0, 2**32, size=8, dtype=np.uint32).view(np.int32)).to(dev)
+        elem = random_field(rng, (2,), dev)
+        return state, scal, sums, (root if case % 4 else None), elem
+
+    def launch(fn, state, scal, sums, root, elem, mode):
+        state, scal = state.clone(), scal.clone()
+        digest = torch.zeros(8, dtype=torch.int32, device=dev)
+        coeffs = torch.zeros((2, 4), dtype=torch.int32, device=dev)
+        if mode == "round":
+            fn(state, scal, digest, sums=sums, root=root, coeffs=coeffs)
+        else:
+            fn(state, scal, digest, elem=elem)
+        return state, scal, digest, coeffs
+
+    bad, worst = 0, 0
+    for case in range(256):
+        args = inputs(case)
+        for mode in ("round", "last element"):
+            res = compare(launch(dtr.round_scalars, *args, mode), launch(dtr.round_scalars_plain, *args, mode))
+            bad += res["mismatches"]
+            worst = max(worst, res["max_abs_err"])
+    rows.append({"kernel": "round_scalars", "case": "256 seeded states x (round, last element): fills 0-63, "
+                 "lanes to 2^63, prev 0 and p-1, with and without a root", "mismatches": bad, "max_abs_err": worst})
+    if bad:
+        raise RuntimeError(f"kernel round_scalars disagrees with its plain version: {rows[-1]}")
+
+    state, scal, sums, root, elem = inputs(1)  # case 1: a root, a fill of 1 + 64 bytes
+    digest = torch.empty(8, dtype=torch.int32, device=dev)
+    coeffs = torch.empty((2, 4), dtype=torch.int32, device=dev)
+    fns = sass_int_ops(_build.library_paths["round_scalars"])
+    instructions = next(c["all"] for f, c in fns.items() if "round_scalars_kernel" in f)
+    bound_ms = instructions / (PEAK["max_sm_mhz"] * 1e6) * 1e3
+    row = {"kernel": "round_scalars", "case": "main: a round with a root",
+           "shapes": [[dtr.STATE_WORDS], [2, 4], [8]], "mismatches": 0, "max_abs_err": worst,
+           "kernel_ms": graph_ms(lambda: dtr.round_scalars(state, scal, digest, sums=sums, root=root, coeffs=coeffs),
+                                 copies=100),
+           "plain_ms": time_ms(lambda: dtr.round_scalars_plain(state, scal, digest, sums=sums, root=root,
+                                                                coeffs=coeffs), 5),
+           "bound_ms": bound_ms, "bound_by": "operations", "instructions": instructions}
+    row["bound_share"] = bound_ms / row["kernel_ms"]
+    print(json.dumps(row), file=sys.stderr, flush=True)
+    main.setdefault("round_scalars", row)
+    rows.append(row)
+    return rows
 
 
 def kernels_phase(dev) -> dict:
@@ -585,14 +667,24 @@ def kernels_phase(dev) -> dict:
     clear_caches()
 
     # kron_mul: the last tensor product of the 2^24 eq table, written into
-    # its half of the packed sumcheck table
-    for label, m, n, timed in (("main 2^16 x 2^8 into out", 1 << 16, 1 << 8, True),
-                               ("1 x 1", 1, 1, False), ("ragged 7 x 300", 7, 300, False)):
-        a, b = random_field(rng, (m,), dev), random_field(rng, (n,), dev)
-        packed = torch.zeros((2, m * n, 4), dtype=torch.int32, device=dev)
-        run("kron_mul", label, lambda: cuda_ops.kron_mul(a, b, out=packed[1]),
-            lambda: cuda_ops.kron_mul_plain(a, b),
-            n_bytes=16 * (m * n + m + n), n_ops=OPS["mul"] * m * n, shapes=[[m, 4], [n, 4]], timed=timed)
+    # its half of the packed sumcheck table (timed); the first product of
+    # every table, 2^8 x 2^8; the batched prove's last, 2^16 x 2^6; a batch;
+    # ragged tiles - rows that do not fill a step, one to four columns a
+    # thread, b wider than a slab - and the edge values
+    kron_cases = (("main 2^16 x 2^8 into out", (1 << 16,), 1 << 8, True, True),
+                  ("2^8 x 2^8", (1 << 8,), 1 << 8, False, False),
+                  ("2^16 x 2^6 into out", (1 << 16,), 1 << 6, True, False),
+                  ("batch (3, 2^10) x 2^6", (3, 1 << 10), 1 << 6, False, False),
+                  ("1 x 1", (1,), 1, False, False), ("ragged 7 x 300", (7,), 300, False, False),
+                  ("ragged 1000 x 3", (1000,), 3, False, False), ("ragged 37 x 255", (37,), 255, False, False),
+                  ("ragged 9 x 600", (9,), 600, False, False), ("slabs 5 x 2500", (5,), 2500, False, False))
+    for label, a_shape, n, into_out, timed in kron_cases:
+        a, b = random_field(rng, a_shape, dev), random_field(rng, (n,), dev)
+        m = a.numel() // 4
+        packed = torch.zeros((2,) + a_shape[:-1] + (a_shape[-1] * n, 4), dtype=torch.int32, device=dev)
+        run("kron_mul", label, (lambda: cuda_ops.kron_mul(a, b, out=packed[1])) if into_out
+            else (lambda: cuda_ops.kron_mul(a, b)), lambda: cuda_ops.kron_mul_plain(a, b),
+            n_bytes=16 * (m * n + m + n), n_ops=OPS["mul"] * m * n, shapes=[list(a.shape), [n, 4]], timed=timed)
     a = limbs.pack_ints(EDGES, device=dev)
     run("kron_mul", "edge pairs", lambda: cuda_ops.kron_mul(a, a), lambda: cuda_ops.kron_mul_plain(a, a),
         shapes=[[16, 4]] * 2)
@@ -731,8 +823,9 @@ def kernels_phase(dev) -> dict:
     del leaf
 
     # fold_codeword: round 0 of the 10 x 2^22 batched prove, on the
-    # fingerprinted 2^23 codeword; the fold that ends every chain (m = 4)
-    rh = int.from_bytes(rng.bytes(16), "little") % P
+    # fingerprinted 2^23 codeword; the fold that ends every chain (m = 4).
+    # rh lies on the card, where the round's Fiat-Shamir kernel writes it.
+    rh = limbs.pack_int(int.from_bytes(rng.bytes(16), "little") % P, device=dev)
     for label, m, log_dom, stride, timed in (("main m=2^23", 1 << 23, 23, 1, True),
                                              ("ragged m=10006", 10006, 16, 4, False),
                                              ("m=4, the end of a chain", 4, 25, 1 << 23, False),
@@ -745,8 +838,9 @@ def kernels_phase(dev) -> dict:
             shapes=[[m, 4], list(tw.shape)], timed=timed)
     code, tw = limbs.pack_ints(EDGES, device=dev), limbs.pack_ints(EDGES[:8], device=dev)
     for rh_edge in (0, 1, P - 1, (P + 1) // 2):
-        run("fold_codeword", f"edge values, rh={rh_edge}", lambda: cuda_ops.fold_codeword(code, tw, 1, rh_edge),
-            lambda: cuda_ops.fold_codeword_plain(code, tw, 1, rh_edge), shapes=[[16, 4], [8, 4]])
+        rhe = limbs.pack_int(rh_edge, device=dev)
+        run("fold_codeword", f"edge values, rh={rh_edge}", lambda: cuda_ops.fold_codeword(code, tw, 1, rhe),
+            lambda: cuda_ops.fold_codeword_plain(code, tw, 1, rhe), shapes=[[16, 4], [8, 4]])
 
     # fold_commit_leaves: round 0 of the 2^24 prove, on the 2^25 codeword
     for label, m, log_dom, stride, timed in (("main m=2^25", 1 << 25, 25, 1, True),
@@ -762,6 +856,13 @@ def kernels_phase(dev) -> dict:
             n_ops=q * (2 * fold_ops() + OPS["sha_half_block"] + alu_ops(8)),
             shapes=[[m, 4], list(tw.shape)], timed=timed)
     del code, tw
+
+    # round_scalars: seeded transcript states at every fill of a block
+    # (0-63 bytes, so the root and the round polynomial land at every
+    # offset and the digest takes one or two blocks), lane sums up to 2^55
+    # and at 0 and 2^63 - 1, prev at 0 and p - 1, a pending root or none,
+    # and the last element's absorb; each launch against its plain version
+    rows.extend(round_scalars_cases(dev, rng, main))
     clear_caches()
     torch.cuda.empty_cache()
     emit("kernels", tolerance="0 mismatches (integers)", cases=rows)
@@ -825,7 +926,37 @@ def routes_phase(dev, log_n: int = 24, log_b: int = BATCHED_LOG_SIZES[-1]) -> No
 
     row("kron_mul", "broadcast operands through mul", broadcast_mul,
         "mle.combine_subtables: kron_mul", lambda: mle.combine_subtables(subs), n * elem)
-    del x, subs
+    # the redesigned tensor product beside the kernel it replaced, at the
+    # last products of the 2^log_n and the batched delta tables, written into
+    # the packed table's delta row as the prove does
+    for label, n_b in ((f"2^{log_n - 8} x 2^8", 1 << 8), (f"2^16 x 2^{log_b - 16}", 1 << (log_b - 16))):
+        a_k = random_field(rng, ((n if n_b == 256 else 1 << log_b) // n_b,), dev)
+        b_k = random_field(rng, (n_b,), dev)
+        packed = torch.empty((2, a_k.shape[0] * n_b, 4), dtype=torch.int32, device=dev)
+        res = compare(previous_routes.kron_mul(a_k, b_k, torch.empty_like(packed[1])),
+                      cuda_ops.kron_mul(a_k, b_k, out=packed[1]))
+        if res["mismatches"]:
+            raise RuntimeError(f"kron_mul disagrees with the kernel it replaced at {label}: {res}")
+        row("kron_mul", f"{label} into out: one thread per element (prev_kron.cu)",
+            lambda: previous_routes.kron_mul(a_k, b_k, packed[1]),
+            "persistent row tiles, b in registers (kron.cu)", lambda: cuda_ops.kron_mul(a_k, b_k, out=packed[1]),
+            16 * (packed[1].numel() // 4 + a_k.shape[0] + n_b))
+        del a_k, b_k, packed
+    # what binds the tensor product: the same kernel with its multiplies taken
+    # out (the stores alone) and with its stores taken out (the multiplies
+    # alone), beside a plain fill of the same output
+    a_k, b_k = random_field(rng, (n >> 8,), dev), random_field(rng, (1 << 8,), dev)
+    out_k = torch.empty((n, 4), dtype=torch.int32, device=dev)
+    previous_routes.kron_parts("stores", a_k, b_k, out_k)
+    if not torch.equal(out_k.view(-1, 1 << 8, 4)[-1], b_k):
+        raise RuntimeError("kron_parts: the stores-alone kernel did not store b")
+    kron_parts = {"shape": [n >> 8, 1 << 8], "bound_ms": 16 * n / PEAK_BYTES_PER_S * 1e3,
+                  "fill_ms": time_ms(lambda: out_k.zero_(), 20),
+                  "stores_alone_ms": time_ms(lambda: previous_routes.kron_parts("stores", a_k, b_k, out_k), 20),
+                  "multiplies_alone_ms": time_ms(
+                      lambda: previous_routes.kron_parts("multiplies", a_k, b_k, out_k), 20),
+                  "whole_ms": time_ms(lambda: cuda_ops.kron_mul(a_k, b_k, out=out_k), 20)}
+    del a_k, b_k, out_k, x, subs
 
     a = (log_m + 1) // 2
     A, B = 1 << a, 1 << (log_m - a)
@@ -863,7 +994,7 @@ def routes_phase(dev, log_n: int = 24, log_b: int = BATCHED_LOG_SIZES[-1]) -> No
     # upper levels
     half_code = code[: m // 4]
     inv = inv_gen_pows(log_m - 2, dev)
-    rh = int.from_bytes(rng.bytes(16), "little") % P
+    rh = limbs.pack_int(int.from_bytes(rng.bytes(16), "little") % P, device=dev)
 
     def fused():
         nxt, leaf = cuda_ops.fold_commit_leaves(half_code, inv, 1, rh)
@@ -1009,7 +1140,8 @@ def routes_phase(dev, log_n: int = 24, log_b: int = BATCHED_LOG_SIZES[-1]) -> No
     del polys
     clear_caches()
     torch.cuda.empty_cache()
-    emit("routes", log_n=log_n, routes=rows, merkle_block_widths=widths, zm_passes_alone=zm_alone,
+    emit("routes", log_n=log_n, routes=rows, kron_parts=kron_parts, merkle_block_widths=widths,
+         zm_passes_alone=zm_alone,
          batched_encode={"shape": [BATCH_POLYS, 1 << log_b], **encode})
 
 
@@ -1073,6 +1205,7 @@ def timed_prove(prove, to_bytes, from_bytes) -> dict:
         prove_s = time.perf_counter() - t0
     d2h = stats.counts().get("d2h_copies", 0)
     proof_bytes = to_bytes(proof)
+    digest = hashlib.sha256(proof_bytes).hexdigest()
     gc.collect()  # keep a collection of the prover's garbage out of the verifier's time
     t0 = time.perf_counter()
     from_bytes(proof_bytes).verify(Transcript())
@@ -1080,13 +1213,43 @@ def timed_prove(prove, to_bytes, from_bytes) -> dict:
     counts = launch_counts()
     return {
         "proof": proof, "prove_s": prove_s, "verify_s": verify_s, "proof_bytes": len(proof_bytes),
+        "proof_sha256": digest,
         "phases_s": dict(phases), "d2h_copies": d2h, "launches": counts,
         "peak_device_bytes": torch.cuda.max_memory_allocated(),
     }
 
 
+# d2h copies a prove may make: the end of the rounds and the query openings,
+# and for the batched prove also the batch root that fingerprint_r needs
+MAX_D2H = {"pcs": 2, "batched_pcs": 3}
+
+
+def rounds_without_sync(session, to_bytes, want_sha256: str) -> dict:
+    """Drive a session whose rounds run under
+    ``torch.cuda.set_sync_debug_mode("error")``: any call that makes the host
+    wait for the card inside ``launch_rounds`` raises.  The copy that ends the
+    rounds and the queries run after the mode is reset; the proof must be
+    the timed prove's, byte for byte."""
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        launched = session.launch_rounds()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    copies_in_rounds = stats.counts().get("d2h_copies", 0)
+    session.run_rounds()
+    digest = hashlib.sha256(to_bytes(session.finish())).hexdigest()
+    if copies_in_rounds or digest != want_sha256:
+        raise RuntimeError(f"rounds under the sync check: {copies_in_rounds} copies, proof {digest} "
+                           f"against {want_sha256}")
+    return {"sync_debug_mode": "error", "rounds_launched": launched, "d2h_copies_in_rounds": copies_in_rounds,
+            "round_scalars_launches": dtr.launch_counts()["round_scalars"], "proof_equals_timed_prove": True}
+
+
 def pcs_phase(dev, log_sizes) -> None:
-    """PCS prove and verify at each size; the largest is a main path."""
+    """PCS prove and verify at each size; the largest is a main path, and
+    its rounds are also run once under the sync check."""
     config = ProverConfig(device=str(dev))
     results = []
     for log_n in log_sizes:
@@ -1096,9 +1259,16 @@ def pcs_phase(dev, log_sizes) -> None:
         proof = res.pop("proof")
         if len(proof.fri_proof.commitments) != log_n or proof.output != output:
             raise RuntimeError("proof has the wrong shape")
+        if res["d2h_copies"] > MAX_D2H["pcs"]:
+            raise RuntimeError(f"a 2^{log_n} PCS prove made {res['d2h_copies']} device->host copies")
         results.append({"log_n": log_n, **res})
         PATH_LAUNCHES[f"pcs 2^{log_n}"] = res["launches"]
-        del proof, evals
+        del proof
+        if log_n == log_sizes[-1]:
+            results[-1]["rounds_without_sync"] = rounds_without_sync(
+                PCSProverSession(point, output, evals, Transcript(), config), pcs_proof_to_bytes,
+                res["proof_sha256"])
+        del evals
         clear_caches()
         torch.cuda.empty_cache()
     emit("pcs", sizes=results)
@@ -1106,7 +1276,8 @@ def pcs_phase(dev, log_sizes) -> None:
 
 def batched_pcs_phase(dev, log_sizes) -> None:
     """Batched PCS prove and verify of BATCH_POLYS polynomials at each size;
-    the largest is a main path."""
+    the largest is a main path, and its rounds 1.. are also run once under
+    the sync check."""
     config = ProverConfig(device=str(dev))
     results = []
     for log_n in log_sizes:
@@ -1117,9 +1288,17 @@ def batched_pcs_phase(dev, log_sizes) -> None:
         if (len(proof.fri_proof.commitments) != log_n - 1 or proof.claim.outputs != claim.outputs
                 or len(proof.fri_proof.queries[0].batch_path.values) != 2 * BATCH_POLYS):
             raise RuntimeError("batched proof has the wrong shape")
+        if res["d2h_copies"] > MAX_D2H["batched_pcs"]:
+            raise RuntimeError(f"a {BATCH_POLYS} x 2^{log_n} batched prove made {res['d2h_copies']} "
+                               "device->host copies")
         results.append({"n_polys": BATCH_POLYS, "log_n": log_n, **res})
         PATH_LAUNCHES[f"batched pcs {BATCH_POLYS} x 2^{log_n}"] = res["launches"]
-        del proof, polys
+        del proof
+        if log_n == log_sizes[-1]:
+            results[-1]["rounds_without_sync"] = rounds_without_sync(
+                BatchedPCSProverSession(claim, polys, Transcript(), config), batched_pcs_proof_to_bytes,
+                res["proof_sha256"])
+        del polys
         clear_caches()
         torch.cuda.empty_cache()
     emit("batched_pcs", sizes=results)
@@ -1262,7 +1441,7 @@ def main() -> int:
     OPS.update(counted["ops"])
     spent = {}
     for stem in ("sha256_words", "sha256_leaves", "merkle_levels", "prev_sha256_words", "fold_commit",
-                 "mul", "kron", "twiddle_mul3", "zm"):
+                 "fold", "mul", "kron", "prev_kron", "twiddle_mul3", "zm", "round_scalars"):
         for fn, c in sass_int_ops(_build.library_paths[stem]).items():
             spent[f"{stem}:{fn}"] = {k: c[k] for k in ("alu", "fma", "either", "int", "all")}
     emit("bounds", peak_bytes_per_s=PEAK_BYTES_PER_S, **PEAK,

@@ -33,7 +33,6 @@ NVCC_FLAGS = [
 
 _p = ctypes.c_void_p
 _i64 = ctypes.c_int64
-_u64 = ctypes.c_uint64
 _int = ctypes.c_int
 
 _ptr64 = ctypes.POINTER(ctypes.c_int64)
@@ -52,14 +51,17 @@ KERNELS = {
     "mlt_butterfly_notw": ("butterfly", [_p, _p, _p, _i64, _i64, _i64, _i64, _int, _p]),
     "mlt_butterfly2": ("butterfly2", [_p, _p, _p, _i64, _i64, _i64, _int, _i64, _int, _p]),
     "mlt_twiddle_mul3": ("twiddle_mul3", [_p, _p, _p, _p, _i64, _i64, _i64, _int, _int, _p]),
-    "mlt_kron": ("kron", [_p, _p, _p, _i64, _i64, _int, _p]),
+    "mlt_kron_tiles": ("kron", [_p, _p, _p, _i64, _i64, _i64, _int, _p]),
+    "mlt_kron_parts": ("kron", [_int, _p, _p, _p, _i64, _i64, _int, _p]),
     "mlt_zm_tiles": ("zm", [_p, _p, _i64, _int, _int, _int, _int, _int, _i64, _int, _int, _p]),
-    "mlt_fold": ("fold", [_p, _p, _p, _i64, _i64, _u64, _u64, _int, _p]),
-    "mlt_fold_commit": ("fold_commit", [_p, _p, _p, _p, _i64, _i64, _u64, _u64, _int, _p]),
-    # the kernels that sha256_leaves / merkle_levels / zm replaced, bound only
-    # for previous_routes.py (the smoke script's comparison of routes)
+    "mlt_fold": ("fold", [_p, _p, _p, _i64, _i64, _p, _int, _p]),
+    "mlt_fold_commit": ("fold_commit", [_p, _p, _p, _p, _i64, _i64, _p, _int, _p]),
+    "mlt_round_scalars": ("round_scalars", [_p, _p, _p, _p, _p, _p, _p, _int, _p]),
+    # the kernels that sha256_leaves / merkle_levels / zm / kron replaced, bound
+    # only for previous_routes.py (the smoke script's comparison of routes)
     "mlt_sha256_words": ("prev_sha256_words", [_p, _p, _i64, _int, _int, _p]),
     "mlt_zm": ("prev_zm", [_p, _i64, _i64, _int, _int, _int, _int, _p]),
+    "mlt_kron": ("prev_kron", [_p, _p, _p, _i64, _i64, _int, _p]),
 }
 # Built with the kernels but never loaded: probe kernels whose machine code
 # the smoke script reads to count the instructions of each primitive.

@@ -33,6 +33,7 @@ from .fri import (
     _fold_codeword,
     _layer_inv_gens,
     _pair_view,
+    _rh_limbs,
     draw_query_indices,
 )
 from .merkle import MerklePath, MerkleTree
@@ -49,10 +50,10 @@ def fingerprint(r: Fp, items: Sequence[Fp]) -> Fp:
     return acc
 
 
-def _fingerprint_codes(codes: torch.Tensor, r: Fp) -> torch.Tensor:
-    """Horner RLC over the batch axis: codes (B, n, 4) -> (n, 4)."""
+def _fingerprint_codes(codes: torch.Tensor, r_limbs: torch.Tensor) -> torch.Tensor:
+    """Horner RLC over the batch axis: codes (B, n, 4) -> (n, 4), with the
+    fingerprint scalar as a (4,) field element on the codes' device."""
     acc = codes[0]
-    r_limbs = limbs.pack_scalar(r, codes.device)
     for j in range(1, codes.shape[0]):
         acc = ops.mul(acc, r_limbs)
         ops.add(acc, codes[j], out=acc)
@@ -66,9 +67,13 @@ class BatchedFriProverData:
                  debug_checks: bool = False):
         self.batch_tree = batch_tree
         self.fingerprint_r = fingerprint_r
+        # packed once: the batched fold and the RLC of the sumcheck table
+        # read it on the device
+        self.fingerprint_limbs = limbs.pack_scalar(fingerprint_r, codes.device)
         self.fri_data = FriProverData()
         self.fri_data.debug_checks = debug_checks
         self.fri_data._log_domain = codes.shape[-2].bit_length() - 1
+        self.fri_data._inv_pows = inv_gen_pows(self.fri_data._log_domain, codes.device)
         self._codes: Optional[torch.Tensor] = codes  # (B, n, 4); dropped after the first fold
 
     @staticmethod
@@ -93,12 +98,13 @@ class BatchedFriProverData:
         transcript.absorb(fingerprint_r.to_bytes())
         return BatchedFriProverData(batch_tree, fingerprint_r, codes, debug_checks)
 
-    def batched_fold_step(self, r: Fp, transcript: Optional[Transcript]) -> None:
-        """First fold: RLC the B columns, then the k=0 fold formula
-        (reference batched_fold_step, src/fri/batched_fri.rs:101-205).  As
-        in ``FriProverData.fold_step``, the fold's root is absorbed only
-        when a transcript is given; the batch codewords are released (the
-        queries read the batch tree's own view of them)."""
+    def batched_fold_step(self, rh: torch.Tensor) -> None:
+        """First fold, with ``rh`` = r/2 on the codes' device: RLC the B
+        columns, then the k=0 fold formula (reference batched_fold_step,
+        src/fri/batched_fri.rs:101-205), then an ordinary pair commit or the
+        end of the chain, as in ``FriProverData.fold_step``; nothing is
+        absorbed here.  The batch codewords are released (the queries read
+        the batch tree's own view of them)."""
         codes, self._codes = self._codes, None
         if codes is None:
             raise RuntimeError("the batched fold step runs once")
@@ -107,26 +113,21 @@ class BatchedFriProverData:
         if n <= blowup:
             return
         fri = self.fri_data
-        rlc = _fingerprint_codes(codes, self.fingerprint_r)
-        nxt = _fold_codeword(rlc, inv_gen_pows(fri._log_domain, codes.device), 0, r)
-        if n // 2 == blowup:
-            fri._finish(nxt, transcript)
-            return
-        fri._guard(nxt, "folded codeword")
-        fri._current = nxt
-        tree = MerkleTree.commit(_pair_view(nxt))
-        fri.trees.append(tree)
-        if transcript is not None:
-            transcript.absorb(tree.root_bytes())
+        rlc = _fingerprint_codes(codes, self.fingerprint_limbs)
+        nxt = _fold_codeword(rlc, fri._inv_pows, 0, rh)
+        fri.push(nxt, None if n // 2 == blowup else MerkleTree.commit(_pair_view(nxt)))
 
     @staticmethod
     def fold(codes: torch.Tensor, transcript: Transcript) -> "BatchedFriProverData":
-        """init + batched first step + plain steps (reference :207-224)."""
+        """init + batched first step + plain steps, each challenge drawn on
+        the host (reference :207-224)."""
         data = BatchedFriProverData.init(codes, transcript)
         num_steps = codes.shape[-2].bit_length() - 1 - LOG_BLOWUP
-        data.batched_fold_step(transcript.next_challenge(), transcript)
+        data.batched_fold_step(_rh_limbs(transcript.next_challenge(), codes.device))
+        data.fri_data.absorb_fold(transcript)
         for k in range(1, num_steps):
-            data.fri_data.fold_step(k, transcript.next_challenge(), transcript)
+            data.fri_data.fold_step(k, _rh_limbs(transcript.next_challenge(), codes.device))
+            data.fri_data.absorb_fold(transcript)
         assert data.fri_data.last_element is not None
         return data
 

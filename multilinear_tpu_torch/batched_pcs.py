@@ -11,8 +11,10 @@ Transcript schedule of round 0 (must match the reference bit-for-bit):
   absorb(claim); absorb(batch root); fingerprint_r = challenge;
   absorb(fingerprint_r); absorb(round-0 polynomial); r_0 = challenge;
   batched fold with r_0; absorb(root_1) (or last_elem when n = 1);
-rounds 1.. are the plain PCS rounds (``pcs.run_round``), and like them each
-leaves its fold's root to the next round's device->host copy.
+rounds 1.. are the plain PCS rounds (``pcs.DeviceRounds``).  The batch root
+is the one value the host needs before the rounds (fingerprint_r depends on
+it): one device->host copy.  The transcript then hops to the device, and
+round 0 with its batched fold runs there like every later round.
 
 The B MLEs and their B codewords are ``(B, 2^n, 4)`` / ``(B, 2^(n+1), 4)``
 device tensors; the encode is ONE batched pass through the Moebius and NTT
@@ -32,7 +34,7 @@ from .field import ops
 from .field.scalar import Fp
 from .fri import FriError, draw_query_indices, encode_mle_for_fri
 from .mle import eq_scalar
-from .pcs import run_round, run_rounds
+from .pcs import DeviceRounds, launch_rounds, run_rounds
 from .sumcheck import SumcheckPoly, SumcheckTables
 from .transcript import Transcript
 from .utils import PhaseTimer
@@ -152,29 +154,34 @@ class BatchedPCSProverSession:
         del codes
         pt.mark("commit_batch")
         # eval-wise Horner RLC of the B MLEs into one sumcheck polynomial
-        rlc_evals = _fingerprint_codes(polys, self.bfri.fingerprint_r)
+        rlc_evals = _fingerprint_codes(polys, self.bfri.fingerprint_limbs)
         self.tables = SumcheckTables.for_pcs(self.claim.inputs, rlc_evals, debug_checks=debug)
+        self.rounds = DeviceRounds(transcript, self.n_vars,
+                                   fingerprint(self.bfri.fingerprint_r, self.claim.outputs), polys.device)
         pt.mark("tables")
-        self.previous_sum = fingerprint(self.bfri.fingerprint_r, self.claim.outputs)
         self.pols: List[SumcheckPoly] = []
 
-        # round 0: the batched fold, which draws on the batch layer exactly
-        # once.  No fold tree exists yet, so its copy carries the sums only;
-        # its own tree's root is left to round 1's copy.
-        pol, self.previous_sum = run_round(
-            self.tables, self.bfri.fri_data,
-            lambda k, r, t: self.bfri.batched_fold_step(r, t), 0,
-            self.n_vars == 1, self.previous_sum, transcript,
-        )
-        self.pols.append(pol)
+        # round 0 on the device: the batched fold, which draws on the batch
+        # layer exactly once.  No fold tree exists yet, so it absorbs no root;
+        # the host replays it with the rounds of the first run_rounds.
+        self.k = 0
+        self.rounds.round(self.tables, self.bfri.fri_data, lambda k, rh: self.bfri.batched_fold_step(rh), 0,
+                          self.n_vars == 1)
         self.k = 1
         pt.mark("rounds")
 
+    def launch_rounds(self, max_rounds: Optional[int] = None) -> int:
+        """Launch up to ``max_rounds`` of rounds 1.. on the device and copy
+        nothing back; returns rounds launched."""
+        return launch_rounds(self, self.bfri.fri_data, max_rounds)
+
     def run_rounds(self, max_rounds: Optional[int] = None) -> int:
-        """Run up to ``max_rounds`` of rounds 1..; returns rounds done."""
+        """Run up to ``max_rounds`` of rounds 1.. and bring the host transcript
+        up to date (one copy, which also replays round 0); returns rounds done."""
         return run_rounds(self, self.bfri.fri_data, max_rounds)
 
     def finish(self) -> "BatchedPCSProof":
+        self.pols += self.rounds.replay(self.bfri.fri_data)
         if self.k != self.n_vars or self.bfri.fri_data.last_element is None:
             raise RuntimeError("finish() before all rounds ran")
         pt = PhaseTimer(self.config.device)

@@ -8,6 +8,8 @@
 // (whose result is committed as an ordinary pair tree afterwards) and the
 // last fold of every chain, which commits nothing.
 //
+// rh = r/2 mod p: a (4,) field element in device memory (fold.cuh).
+//
 // Bound on an H100, per output element: 32 bytes of codeword and 16 of
 // twiddle read, 16 written, against two field multiplies (~250 32-bit
 // integer operations): memory-bound.  One thread per output element; the two
@@ -17,22 +19,19 @@
 #include "fold.cuh"
 
 __global__ void fold_kernel(const void* __restrict__ code, const void* __restrict__ tw,
-                            void* __restrict__ nxt, long long h, long long stride, fp rh) {
+                            void* __restrict__ nxt, long long h, long long stride,
+                            const void* __restrict__ rh_ptr) {
   long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= h) return;
-  fp_store(nxt, j, fold_one(code, tw, j, h, stride, rh));
+  fp_store(nxt, j, fold_one(code, tw, j, h, stride, fold_rh(rh_ptr)));
 }
 
 extern "C" int mlt_fold(const void* code, const void* tw, void* nxt, long long m,
-                        long long stride, unsigned long long rh_lo, unsigned long long rh_hi,
-                        int device, cudaStream_t stream) {
+                        long long stride, const void* rh, int device, cudaStream_t stream) {
   device_guard guard(device);
   const int threads = 256;
   long long h = m / 2;
   unsigned blocks = (unsigned)((h + threads - 1) / threads);
-  fp rh;
-  rh.lo = rh_lo;
-  rh.hi = rh_hi;
   fold_kernel<<<blocks, threads, 0, stream>>>(code, tw, nxt, h, stride, rh);
   return (int)cudaGetLastError();
 }

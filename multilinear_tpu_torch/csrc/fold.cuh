@@ -2,10 +2,14 @@
 // (fold.cu) and the fused fold + leaf-hash kernel (fold_commit.cu):
 //   nxt[j] = half(a + b) + (a - b) * tw[j * stride] * rh,
 //            a = code[j], b = code[j + h]
-// rh = r/2 mod p is the fold challenge times 2^-1, computed once on the
-// host and passed to the kernel by value.
+// rh = r/2 mod p is the fold challenge times 2^-1.  It lies in device
+// memory, where the round's Fiat-Shamir kernel (round_scalars.cu) wrote it:
+// every thread of a fold reads the same 16 bytes (fold_rh), so a round needs
+// no copy to the host and back between drawing the challenge and folding.
 #pragma once
 #include "field.cuh"
+
+__device__ __forceinline__ fp fold_rh(const void* rh) { return fp_load(rh, 0); }
 
 __device__ __forceinline__ fp fold_one(const void* code, const void* tw, long long j,
                                        long long h, long long stride, fp rh) {

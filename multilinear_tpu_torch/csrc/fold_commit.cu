@@ -3,8 +3,8 @@
 //   nxt[j]  = half(a + b) + (a - b) * tw[j * stride] * rh,
 //             a = code[j], b = code[j + h]            for j < h
 //   digs[i] = SHA-256(le_bytes(nxt[i]) || le_bytes(nxt[i + q]))   for i < q
-// rh = r/2 mod p is the fold challenge times 2^-1, computed once on the
-// host and passed by value.
+// rh = r/2 mod p is the fold challenge times 2^-1, read from device memory
+// (fold.cuh).
 //
 // Replaces the TPU kernel `_fold_commit_flat` / `fold_commit_leaves` of the
 // JAX package's field/pallas_ops.py.
@@ -21,10 +21,11 @@
 
 __global__ void fold_commit_kernel(const void* __restrict__ code, const void* __restrict__ tw,
                                    void* __restrict__ nxt, u32* __restrict__ digs,
-                                   long long m, long long stride, fp rh) {
+                                   long long m, long long stride, const void* __restrict__ rh_ptr) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   long long q = m / 4, h = m / 2;
   if (i >= q) return;
+  fp rh = fold_rh(rh_ptr);
   fp x = fold_one(code, tw, i, h, stride, rh);
   fp y = fold_one(code, tw, i + q, h, stride, rh);
   fp_store(nxt, i, x);
@@ -51,15 +52,12 @@ __global__ void fold_commit_kernel(const void* __restrict__ code, const void* __
 }
 
 extern "C" int mlt_fold_commit(const void* code, const void* tw, void* nxt, void* digs,
-                               long long m, long long stride, unsigned long long rh_lo,
-                               unsigned long long rh_hi, int device, cudaStream_t stream) {
+                               long long m, long long stride, const void* rh, int device,
+                               cudaStream_t stream) {
   device_guard guard(device);
   const int threads = 128;
   long long q = m / 4;
   unsigned blocks = (unsigned)((q + threads - 1) / threads);
-  fp rh;
-  rh.lo = rh_lo;
-  rh.hi = rh_hi;
   fold_commit_kernel<<<blocks, threads, 0, stream>>>(code, tw, nxt, static_cast<u32*>(digs), m,
                                                      stride, rh);
   return (int)cudaGetLastError();

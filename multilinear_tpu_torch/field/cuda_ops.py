@@ -36,7 +36,6 @@ from typing import Optional
 import torch
 
 from . import ops
-from .scalar import P
 
 _LAUNCHES = {
     "mul": 0, "add": 0, "sub": 0, "butterfly": 0, "butterfly_notw": 0, "butterfly2": 0,
@@ -388,6 +387,9 @@ def twiddle_mul3(F: torch.Tensor, Tc: torch.Tensor, Tf: torch.Tensor) -> torch.T
 # ---------------------------------------------------------------------------
 
 
+_KRON_SLAB = 1024  # columns of b a launch keeps in registers (4 per thread)
+
+
 def kron_mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     n = b.shape[0]
     return mul_plain(a.unsqueeze(-2), b).reshape(a.shape[:-2] + (a.shape[-2] * n, 4))
@@ -396,7 +398,8 @@ def kron_mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def kron_mul(a: torch.Tensor, b: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """out[..., i * n + j] = a[..., i] * b[j].  a: (m, 4) or (batch, m, 4);
     b: (n, 4); returns (..., m * n, 4), written into ``out`` when given (a
-    contiguous tensor of that shape)."""
+    contiguous tensor of that shape).  A batch is one product of its
+    batch * m rows with b."""
     _check_field("kron_mul: a", a)
     _check_field("kron_mul: b", b, device=a.device)
     if a.dim() not in (2, 3) or b.dim() != 2:
@@ -415,9 +418,11 @@ def kron_mul(a: torch.Tensor, b: torch.Tensor, out: Optional[torch.Tensor] = Non
         return out
     if out is None:
         out = torch.empty(shape, dtype=torch.int32, device=a.device)
-    _check_count("kron_mul", m * n)
-    if m * n:
-        _launch("kron_mul", "mlt_kron", a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n)
+    # the kernel keeps up to _KRON_SLAB columns of b in registers: a wider b
+    # goes in slabs, each writing its columns of every row
+    for j0 in range(0, n if m else 0, _KRON_SLAB):
+        _launch("kron_mul", "mlt_kron_tiles", a.device, a.data_ptr(), b.data_ptr() + 16 * j0,
+                out.data_ptr() + 16 * j0, m, min(_KRON_SLAB, n - j0), n)
     return out
 
 
@@ -563,32 +568,30 @@ def zm_bitrev_pad(x: torch.Tensor, add: bool, log_blowup: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _check_fold(kernel: str, code, tw_table, tw_stride: int, rh: int, multiple: int) -> None:
+def _check_fold(kernel: str, code, tw_table, tw_stride: int, rh, multiple: int) -> None:
     _check_field(f"{kernel}: code", code)
     _check_field(f"{kernel}: tw_table", tw_table, device=code.device)
+    _check_field(f"{kernel}: rh", rh, device=code.device)
     m = code.shape[0]
     if code.dim() != 2 or tw_table.dim() != 2 or m < multiple or m % multiple:
         raise ValueError(f"{kernel}: bad shapes {tuple(code.shape)}, {tuple(tw_table.shape)}")
     if tw_stride < 1 or (m // 2 - 1) * tw_stride >= tw_table.shape[0]:
         raise ValueError(f"{kernel}: twiddle table too short for this stride")
-    if not 0 <= rh < P:
-        raise ValueError(f"{kernel}: rh must be a canonical residue")
+    if rh.shape != (4,):
+        raise ValueError(f"{kernel}: rh must be one (4,) field element, got {tuple(rh.shape)}")
     _check_count(kernel, m // 2)
 
 
-def fold_codeword_plain(code, tw_table, tw_stride: int, rh: int) -> torch.Tensor:
-    from . import limbs
-
+def fold_codeword_plain(code, tw_table, tw_stride: int, rh: torch.Tensor) -> torch.Tensor:
     half = code.shape[0] // 2
     a, b = code[:half], code[half:]
     tw = tw_table[::tw_stride][:half]
     even = ops.half(ops.add_plain(a, b))
     odd = mul_plain(ops.sub_plain(a, b), tw)
-    rhl = limbs.pack_int(rh, device=code.device)
-    return ops.add_plain(even, mul_plain(rhl, odd))
+    return ops.add_plain(even, mul_plain(rh, odd))
 
 
-def fold_codeword(code: torch.Tensor, tw_table: torch.Tensor, tw_stride: int, rh: int) -> torch.Tensor:
+def fold_codeword(code: torch.Tensor, tw_table: torch.Tensor, tw_stride: int, rh: torch.Tensor) -> torch.Tensor:
     """One FRI fold: code (m, 4), m even -> (m/2, 4),
 
         nxt[i] = half(a+b) + (a-b) * tw[i] * rh,  a = code[i], b = code[i+m/2]
@@ -602,26 +605,27 @@ def fold_codeword(code: torch.Tensor, tw_table: torch.Tensor, tw_stride: int, rh
     nxt = torch.empty((m // 2, 4), dtype=torch.int32, device=code.device)
     _launch(
         "fold_codeword", "mlt_fold", code.device,
-        code.data_ptr(), tw_table.data_ptr(), nxt.data_ptr(),
-        m, tw_stride, rh & 0xFFFFFFFFFFFFFFFF, rh >> 64,
+        code.data_ptr(), tw_table.data_ptr(), nxt.data_ptr(), m, tw_stride, rh.data_ptr(),
     )
     return nxt
 
 
-def fold_commit_leaves_plain(code, tw_table, tw_stride: int, rh: int):
+def fold_commit_leaves_plain(code, tw_table, tw_stride: int, rh: torch.Tensor):
     from ..sha256_cuda import leaf_hashes_plain
 
     nxt = fold_codeword_plain(code, tw_table, tw_stride, rh)
     return nxt, leaf_hashes_plain(nxt.view(2, nxt.shape[0] // 2, 4))
 
 
-def fold_commit_leaves(code: torch.Tensor, tw_table: torch.Tensor, tw_stride: int, rh: int):
+def fold_commit_leaves(code: torch.Tensor, tw_table: torch.Tensor, tw_stride: int, rh: torch.Tensor):
     """One FRI fold and the Merkle leaf level of the result, fused.
 
     code: (m, 4), m a multiple of 4.  ``tw_table``: (T, 4) powers of the
     inverse domain generator; the fold's twiddle i is
-    ``tw_table[i * tw_stride]``.  ``rh``: the integer r/2 mod p (the fold
-    challenge times 2^-1, one host multiply).  Returns
+    ``tw_table[i * tw_stride]``.  ``rh``: r/2 mod p (the fold challenge times
+    2^-1) as a canonical (4,) field element on the codeword's device - the
+    kernel reads it there, so a challenge drawn on the device needs no copy
+    to the host.  Returns
 
         nxt[i]  = half(a+b) + (a-b) * tw[i] * rh,  a = code[i], b = code[i+m/2]
         digs[i] = SHA-256(le_bytes(nxt[i]) || le_bytes(nxt[i + m/4]))
@@ -636,7 +640,6 @@ def fold_commit_leaves(code: torch.Tensor, tw_table: torch.Tensor, tw_stride: in
     digs = torch.empty((m // 4, 8), dtype=torch.int32, device=code.device)
     _launch(
         "fold_commit_leaves", "mlt_fold_commit", code.device,
-        code.data_ptr(), tw_table.data_ptr(), nxt.data_ptr(), digs.data_ptr(),
-        m, tw_stride, rh & 0xFFFFFFFFFFFFFFFF, rh >> 64,
+        code.data_ptr(), tw_table.data_ptr(), nxt.data_ptr(), digs.data_ptr(), m, tw_stride, rh.data_ptr(),
     )
     return nxt, digs

@@ -31,9 +31,19 @@ LIMB_BITS = 32
 LIMB_MASK = (1 << LIMB_BITS) - 1
 
 
+def to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on ``device``.  To a card it goes through pinned memory
+    with a non-blocking copy: a copy from pageable memory would make the host
+    wait for the card's queue to drain."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def _u32_to_tensor(arr: np.ndarray, device) -> torch.Tensor:
     arr = np.ascontiguousarray(arr, dtype=np.uint32)
-    return torch.from_numpy(arr.view(np.int32).copy()).to(device)
+    return to_device(torch.from_numpy(arr.view(np.int32).copy()), device)
 
 
 def _tensor_to_u32(t: torch.Tensor) -> np.ndarray:

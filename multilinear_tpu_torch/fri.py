@@ -38,28 +38,30 @@ class FriError(Exception):
     pass
 
 
-def _rh_scalar(r: Fp) -> int:
-    """r * 2^{-1} as a canonical integer: ONE host multiply.
+def _rh_limbs(r: Fp, device) -> torch.Tensor:
+    """r * 2^{-1} as a (4,) field element on ``device``: ONE host multiply,
+    for a challenge drawn on the host (the PCS rounds draw theirs on the
+    device, where ``round_scalars`` writes r/2 beside r).
 
     The fold ((a+b) + r*(a-b)*tw) / 2 is computed as
     half(a+b) + (a-b)*tw*(r/2): the division by two becomes a multiply-free
     shift-add and the r and 1/2 scalars collapse into one factor.
     """
-    return (Fp(r) * TWO_INV).v
+    return limbs.pack_scalar(Fp(r) * TWO_INV, device)
 
 
-def _fold_codeword(code: torch.Tensor, inv_pows: torch.Tensor, k: int, r: Fp) -> torch.Tensor:
-    """Fold ``code`` (m, 4) with challenge r at FRI round k: (m/2, 4)."""
+def _fold_codeword(code: torch.Tensor, inv_pows: torch.Tensor, k: int, rh: torch.Tensor) -> torch.Tensor:
+    """Fold ``code`` (m, 4) at FRI round k with ``rh`` = r/2 on its device: (m/2, 4)."""
     stats.bump("fri_folds_plain")
-    return cuda_ops.fold_codeword(code, inv_pows, 1 << k, _rh_scalar(r))
+    return cuda_ops.fold_codeword(code, inv_pows, 1 << k, rh)
 
 
-def _fold_and_commit(code: torch.Tensor, inv_pows: torch.Tensor, k: int, r: Fp):
-    """Fold ``code`` (m, 4) with challenge r at FRI round k and hash every
+def _fold_and_commit(code: torch.Tensor, inv_pows: torch.Tensor, k: int, rh: torch.Tensor):
+    """Fold ``code`` (m, 4) at FRI round k with ``rh`` = r/2 and hash every
     Merkle level of the result.  Returns (folded (m/2, 4), layers) with the
     leaf-digest level first; the pair leaves are (nxt[i], nxt[i + m/4])."""
     stats.bump("fri_folds_fused")
-    nxt, leaf = cuda_ops.fold_commit_leaves(code, inv_pows, 1 << k, _rh_scalar(r))
+    nxt, leaf = cuda_ops.fold_commit_leaves(code, inv_pows, 1 << k, rh)
     return nxt, [leaf] + tree_levels(leaf)
 
 
@@ -76,15 +78,19 @@ class FriProverData:
     def __init__(self):
         self.trees: List[MerkleTree] = []
         self.last_element: Optional[Fp] = None
+        # the last fold's 2^LOG_BLOWUP elements on the device, until the host
+        # has checked them and set last_element
+        self.final: Optional[torch.Tensor] = None
         self._log_domain: int = 0
         self._current: Optional[torch.Tensor] = None  # (m, 4) on the device
+        self._inv_pows: Optional[torch.Tensor] = None  # the fold twiddles of the whole chain
         self.debug_checks = False
 
     @staticmethod
     def init(code: torch.Tensor, transcript: Optional[Transcript], debug_checks: bool = False) -> "FriProverData":
         """Commit to the initial codeword; absorb the root when a transcript
-        is given (a caller that batches its device->host copies passes None
-        and absorbs ``trees[0]``'s root itself)."""
+        is given (a prover that runs its rounds' Fiat-Shamir on the device
+        passes None and leaves ``trees[0]``'s root to the first round)."""
         n = code.shape[0]
         if n < 4 or n & (n - 1):
             raise ValueError("codeword length must be a power of two >= 4")
@@ -93,6 +99,9 @@ class FriProverData:
         data._log_domain = n.bit_length() - 1
         data._current = code
         data._guard(code, "codeword")
+        # the twiddle table is built here, not in the first round: building
+        # it packs host scalars, and the rounds copy nothing from the host
+        data._inv_pows = inv_gen_pows(data._log_domain, code.device)
         tree = MerkleTree.commit(_pair_view(code))
         data.trees.append(tree)
         if transcript is not None:
@@ -103,64 +112,69 @@ class FriProverData:
         if self.debug_checks and not ops.is_canonical(t):
             raise FriError(f"non-canonical field element in {what}")
 
-    def fold_step(self, k: int, r: Fp, transcript: Optional[Transcript]) -> None:
-        """Fold the current codeword with challenge r; commit or finish.
+    def push(self, nxt: torch.Tensor, tree: Optional[MerkleTree]) -> None:
+        """Make the folded codeword ``nxt`` current: a committed layer with
+        its ``tree``, or (tree None) the end of the chain, whose
+        ``2^LOG_BLOWUP`` elements wait in ``final`` for the host's check."""
+        self._guard(nxt, "folded codeword")
+        self._current = nxt
+        if tree is None:
+            self.final = nxt
+        else:
+            self.trees.append(tree)
+
+    def fold_step(self, k: int, rh: torch.Tensor) -> None:
+        """Fold the current codeword with ``rh`` = r/2 (a (4,) field element
+        on the codeword's device); commit, or end the chain.
 
         Reference fold_step (src/fri/mod.rs:79-134); the tail-indexed
         inverse twiddle gen_pows[len - i*2^k] equals inv_gen^(i*2^k), read
-        by the kernel as ``inv_pows[i << k]``.
-
-        The last fold leaves ``2^LOG_BLOWUP`` equal elements: it commits
-        nothing, sets ``last_element`` and absorbs it.  Any other fold
-        appends a tree and absorbs its root if a transcript is given.
+        by the kernel as ``inv_pows[i << k]``.  The last fold leaves
+        ``2^LOG_BLOWUP`` equal elements and commits nothing.  Nothing is
+        absorbed here: the caller absorbs the new root or the last element,
+        on the host (:meth:`absorb_fold`) or on the device.
         """
         code = self._current
         m = code.shape[0]
         blowup = 1 << LOG_BLOWUP
         if m <= blowup:
             return
-        inv_pows = inv_gen_pows(self._log_domain, code.device)
         if m // 2 == blowup:
-            self._finish(_fold_codeword(code, inv_pows, k, r), transcript)
+            self.push(_fold_codeword(code, self._inv_pows, k, rh), None)
             return
-        nxt, layers = _fold_and_commit(code, inv_pows, k, r)
-        self._guard(nxt, "folded codeword")
-        self._current = nxt
-        tree = MerkleTree(layers, _pair_view(nxt))
-        self.trees.append(tree)
-        if transcript is not None:
-            transcript.absorb(tree.root_bytes())
+        nxt, layers = _fold_and_commit(code, self._inv_pows, k, rh)
+        self.push(nxt, MerkleTree(layers, _pair_view(nxt)))
 
-    def _finish(self, nxt: torch.Tensor, transcript: Optional[Transcript]) -> None:
-        """The end of a fold chain: ``nxt`` holds ``2^LOG_BLOWUP`` elements,
-        which must all be equal; set ``last_element`` and absorb it."""
-        self._guard(nxt, "folded codeword")
-        self._current = nxt
-        vals = limbs.unpack_ints(stats.fetch(nxt))
-        first = Fp(int(vals[0]))
-        if not all(int(v) == first.v for v in vals):
+    def set_last_element(self, values) -> None:
+        """Check the last fold's elements (host integers): all must be equal."""
+        first = int(values[0])
+        if any(int(v) != first for v in values):
             raise FriError("not an RS code")
-        self.last_element = first
-        if transcript is not None:
-            transcript.absorb(first.to_bytes())
+        self.last_element = Fp(first)
+        self.final = None
+
+    def absorb_fold(self, transcript: Transcript) -> None:
+        """Host Fiat-Shamir after a fold: absorb the new layer's root, or
+        check and absorb the last element (one copy each)."""
+        if self.final is not None:
+            self.set_last_element(limbs.unpack_ints(stats.fetch(self.final)))
+            transcript.absorb(self.last_element.to_bytes())
+        else:
+            transcript.absorb(self.trees[-1].root_bytes())
 
     @staticmethod
     def fold(code: torch.Tensor, transcript: Transcript) -> "FriProverData":
-        """init + all fold rounds, drawing one challenge per round
-        (reference src/fri/mod.rs:136-145)."""
+        """init + all fold rounds, drawing one challenge per round on the
+        host (reference src/fri/mod.rs:136-145)."""
         data = FriProverData.init(code, transcript)
         for k in range(data._log_domain - LOG_BLOWUP):
-            data.fold_step(k, transcript.next_challenge(), transcript)
+            data.fold_step(k, _rh_limbs(transcript.next_challenge(), code.device))
+            data.absorb_fold(transcript)
         assert data.last_element is not None
         return data
 
     def fold_roots(self) -> List[bytes]:
-        """Every layer's root; roots not fetched yet come in one copy."""
-        pending = [t for t in self.trees if not t.has_root_bytes]
-        if pending:
-            words = stats.fetch(torch.stack([t.root_words for t in pending]))
-            for t, w in zip(pending, words):
-                t.set_root_words(w)
+        """Every layer's root (the provers have fetched them all by now)."""
         return [t.root_bytes() for t in self.trees]
 
     def layer_indices(self, indices: Sequence[int]) -> List[List[int]]:

@@ -15,12 +15,16 @@ Wire/transcript schedule (must match the reference bit-for-bit):
 The final verifier link: eq(inputs, randoms) * last_elem == s_last(r_last)
 (reference multilinear_pcs.rs:179-184).
 
-Fiat-Shamir runs on the host.  A round needs the previous tree's root and
-this round's two partial sums before it can draw its challenge; both are
-ready at the same point, so they cross to the host in ONE small copy per
-round (24 words: the root and the two sums as unreduced limb sums, which
-the host reduces mod p), and the challenge goes back as a kernel argument.
-Rounds run on the device down to the last element: there is no host tail.
+The rounds' Fiat-Shamir runs on the device.  The host transcript's
+midstate hops to the device before round 0; each round is the partial
+sums, ONE launch of the round-scalars kernel (absorb the pending root and
+the round polynomial, draw r, write r and r/2 where the folds read them),
+the table fold and the codeword fold; no round copies anything to or from
+the host.  A call to ``run_rounds`` ends in ONE device->host copy (the
+round polynomials, the roots, the last fold's elements and the device's
+digest), after which the host replays the same absorbs into its own
+transcript and checks the digest.  Rounds run on the device down to the
+last element: there is no host tail.
 """
 
 from __future__ import annotations
@@ -28,15 +32,18 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
+from . import device_transcript as dtr
 from . import stats
 from .config import LOG_BLOWUP, NUM_QUERIES, ProverConfig
-from .field import ops
+from .field import limbs, ops
 from .field.scalar import Fp
 from .fri import FriError, FriProof, FriProverData, draw_query_indices, encode_mle_for_fri
 from .mle import eq_scalar
-from .sumcheck import SumcheckPoly, SumcheckTables, round_poly_from_sums
+from .sha256 import digest_to_bytes
+from .sumcheck import SumcheckPoly, SumcheckTables
 from .transcript import Transcript
 from .utils import PhaseTimer
 
@@ -102,50 +109,111 @@ class PCSProof:
         self.fri_proof.verify_queries(transcript, random_elements)
 
 
-def run_round(tables: SumcheckTables, fri_data: FriProverData, fold_step, k: int, last: bool,
-              previous_sum: Fp, transcript: Transcript):
-    """One sumcheck + FRI round k, shared by the plain and the batched
-    session: round polynomial, challenge, table fold, codeword fold.
-    ``fold_step(k, r, transcript or None)`` folds the codeword(s).  Returns
-    (round polynomial, s(r)).
+class DeviceRounds:
+    """The rounds' Fiat-Shamir on the prover's device, and what the host
+    has not replayed yet.
 
-    ONE device->host copy: this round's partial sums s(1), s(2), and with
-    them the root of ``fri_data``'s newest tree if it has not been absorbed
-    yet.  The fold that ends this round leaves ITS root to the next round's
-    copy in the same way; the last fold absorbs ``last_element`` itself.
+    ``state``: the transcript (``device_transcript``), hopped from the host
+    transcript at construction.  ``scal``: (3, 4) - the running sum, then
+    this round's r and r/2, which the folds read.  ``coeffs``: (n, 2, 4), the
+    nonzero coefficients of round k's polynomial in slot k.  ``digest``: the
+    digest of the device state after its latest absorb.  The copies to the
+    device are made here, before the rounds, and do not make the host wait.
     """
-    tree = fri_data.trees[-1] if fri_data.trees else None
-    sums_dev = tables.partial_sums().view(torch.int32).reshape(-1)
-    if tree is None or tree.has_root_bytes:
-        sums = stats.fetch(sums_dev)
-    else:
-        host = stats.fetch(torch.cat([tree.root_words, sums_dev]))
-        tree.set_root_words(host[:8])
-        transcript.absorb(tree.root_bytes())
-        sums = host[8:]
-    s1, s2 = (ops.limb_sums_to_int(lanes) for lanes in sums.view("<i8").reshape(2, 4))
-    pol, r, new_sum = round_poly_from_sums([s1, s2], previous_sum, transcript)
-    tables.fold(r)
-    fold_step(k, r, transcript if last else None)
-    return pol, new_sum
+
+    def __init__(self, transcript: Transcript, n_rounds: int, previous_sum: Fp, device):
+        self.transcript = transcript
+        self.state = dtr.state_from_host(transcript, device)
+        self.scal = limbs.pack_ints([Fp(previous_sum), 0, 0], device=device)
+        self.coeffs = torch.empty((n_rounds, 2, 4), dtype=torch.int32, device=device)
+        self.digest = torch.empty(8, dtype=torch.int32, device=device)
+        self.roots_absorbed = 0  # fold trees whose root the device state holds
+        self._rounds = []  # (k, tree whose root round k absorbed, or None), not replayed yet
+        self._last = False  # the last element was absorbed and not replayed yet
+
+    @property
+    def r(self) -> torch.Tensor:
+        return self.scal[1]
+
+    @property
+    def rh(self) -> torch.Tensor:
+        return self.scal[2]
+
+    def round(self, tables: SumcheckTables, fri_data: FriProverData, fold_step, k: int, last: bool) -> None:
+        """Round k, all on the device: the round polynomial's sums, its
+        Fiat-Shamir (absorbing the newest tree's root first if the state has
+        not had it), the table fold, the codeword fold ``fold_step(k, rh)``;
+        after the last fold the last element's absorb."""
+        trees = fri_data.trees
+        tree = trees[self.roots_absorbed] if len(trees) > self.roots_absorbed else None
+        dtr.round_scalars(self.state, self.scal, self.digest, sums=tables.partial_sums(),
+                          root=tree.root_words if tree is not None else None, coeffs=self.coeffs[k])
+        self.roots_absorbed += tree is not None
+        self._rounds.append((k, tree))
+        tables.fold(self.r)
+        fold_step(k, self.rh)
+        if last:
+            dtr.round_scalars(self.state, self.scal, self.digest, elem=fri_data.final)
+            self._last = True
+
+    def replay(self, fri_data: FriProverData) -> List[SumcheckPoly]:
+        """ONE device->host copy: the round polynomials of the rounds not
+        replayed yet, every root not fetched yet, the last fold's elements
+        if the chain ended, the device's digest.  Then the host transcript
+        absorbs what the device absorbed, in the same order, and must reach
+        the same digest.  Returns the round polynomials."""
+        if not self._rounds:
+            return []
+        fresh = [t for t in fri_data.trees if not t.has_root_bytes]
+        k0, n = self._rounds[0][0], len(self._rounds)
+        parts = [self.coeffs[k0 : k0 + n].reshape(-1)] + [t.root_words for t in fresh]
+        if self._last:
+            parts.append(fri_data.final.reshape(-1))
+        parts.append(self.digest)
+        host = stats.fetch(torch.cat(parts)).view(np.uint32)
+        coeffs = limbs.unpack_ints(host[: 8 * n].reshape(-1, 2, 4))
+        off = 8 * n
+        for t in fresh:
+            t.set_root_words(host[off : off + 8])
+            off += 8
+        pols = []
+        for (k, tree), (c1, c2) in zip(self._rounds, coeffs):
+            if tree is not None:
+                self.transcript.absorb(tree.root_bytes())
+            pol = SumcheckPoly([Fp(int(c1)), Fp(int(c2))])
+            pol.absorb_into(self.transcript)
+            pols.append(pol)
+        if self._last:
+            fri_data.set_last_element(limbs.unpack_ints(host[off:-8].reshape(-1, 4)))
+            self.transcript.absorb(fri_data.last_element.to_bytes())
+        if self.transcript.random() != digest_to_bytes(host[-8:]):
+            raise dtr.TranscriptMismatch("the host transcript's replay of the rounds does not reach "
+                                         "the digest the device computed")
+        self._rounds, self._last = [], False
+        return pols
+
+
+def launch_rounds(session, fri_data: FriProverData, max_rounds: Optional[int]) -> int:
+    """Advance a prover session (plain or batched: ``tables``, ``k``,
+    ``n_vars``, ``rounds``, ``config``) by up to ``max_rounds`` rounds of
+    plain folds on ``fri_data``, all on the device: nothing here copies to
+    or from the host.  Returns the number of rounds launched."""
+    end = session.n_vars if max_rounds is None else min(session.n_vars, session.k + max_rounds)
+    done = 0
+    while session.k < end:
+        session.rounds.round(session.tables, fri_data, fri_data.fold_step, session.k,
+                             session.k == session.n_vars - 1)
+        session.k += 1
+        done += 1
+    return done
 
 
 def run_rounds(session, fri_data: FriProverData, max_rounds: Optional[int]) -> int:
-    """Advance a prover session (plain or batched: ``tables``, ``k``,
-    ``n_vars``, ``previous_sum``, ``pols``, ``transcript``, ``config``) by up
-    to ``max_rounds`` rounds of plain folds on ``fri_data``; returns the
-    number of rounds done."""
-    end = session.n_vars if max_rounds is None else min(session.n_vars, session.k + max_rounds)
+    """``launch_rounds``, then the one copy that brings the host transcript
+    and ``session.pols`` up to date; returns the number of rounds done."""
     pt = PhaseTimer(session.config.device)
-    done = 0
-    while session.k < end:
-        pol, session.previous_sum = run_round(
-            session.tables, fri_data, fri_data.fold_step, session.k,
-            session.k == session.n_vars - 1, session.previous_sum, session.transcript,
-        )
-        session.pols.append(pol)
-        session.k += 1
-        done += 1
+    done = launch_rounds(session, fri_data, max_rounds)
+    session.pols += session.rounds.replay(fri_data)
     pt.mark("rounds")
     return done
 
@@ -180,20 +248,27 @@ class PCSProverSession:
         pt = PhaseTimer(self.config.device)
         code = encode_mle_for_fri(evals)
         pt.mark("encode")
-        # the root is absorbed with the first round's copy, see run_rounds
+        # the root is absorbed on the device by the first round
         self.fri_data = FriProverData.init(code, None, debug_checks=debug)
         pt.mark("commit_l0")
         self.tables = SumcheckTables.for_pcs(self.inputs, evals, debug_checks=debug)
+        self.rounds = DeviceRounds(transcript, self.n_vars, self.output, evals.device)
         pt.mark("tables")
         self.k = 0
-        self.previous_sum = self.output
         self.pols: List[SumcheckPoly] = []
 
+    def launch_rounds(self, max_rounds: Optional[int] = None) -> int:
+        """Launch up to ``max_rounds`` sumcheck+FRI rounds on the device and
+        copy nothing back; returns rounds launched."""
+        return launch_rounds(self, self.fri_data, max_rounds)
+
     def run_rounds(self, max_rounds: Optional[int] = None) -> int:
-        """Run up to ``max_rounds`` sumcheck+FRI rounds; returns rounds done."""
+        """Run up to ``max_rounds`` sumcheck+FRI rounds and bring the host
+        transcript up to date (one copy); returns rounds done."""
         return run_rounds(self, self.fri_data, max_rounds)
 
     def finish(self) -> "PCSProof":
+        self.pols += self.rounds.replay(self.fri_data)
         if self.k != self.n_vars or self.fri_data.last_element is None:
             raise RuntimeError("finish() before all rounds ran")
         pt = PhaseTimer(self.config.device)

@@ -1,12 +1,16 @@
-"""Wrappers of the two kernels that were redesigned, for comparison only.
+"""Wrappers of the kernels that were redesigned, for comparison only.
 
 ``csrc/prev_sha256_words.cu`` (one contiguous message per thread, launched
-once per Merkle level) and ``csrc/prev_zm.cu`` (a 2^11-element tile run stage
-by stage through shared memory, three passes at 2^22-2^24) stay compiled
-under their first symbols so that ``chip_smoke.py``'s ``routes`` phase can
-time the routes they served - byte swap + concatenation + message hash, a
-launch per tree level, three Moebius passes + gather + padded copy - beside
-the kernels that replaced them, on the same card in the same run.  Nothing
+once per Merkle level), ``csrc/prev_zm.cu`` (a 2^11-element tile run stage
+by stage through shared memory, three passes at 2^22-2^24) and
+``csrc/prev_kron.cu`` (one thread per output element, a division and two
+loads each) stay compiled under their first symbols so that
+``chip_smoke.py``'s ``routes`` phase can time the routes they served - byte
+swap + concatenation + message hash, a launch per tree level, three Moebius
+passes + gather + padded copy, the tensor product - beside the kernels that
+replaced them, on the same card in the same run.  ``kron_parts`` launches the
+current tensor-product kernel less one part (its stores alone, its
+multiplies alone), so that the same phase can show what binds it.  Nothing
 else imports this module and no prover path reaches it.  The functions
 launch on CUDA tensors only and count no launches.
 """
@@ -76,3 +80,27 @@ def zm_passes(bits: int):
         passes.append((d, c, 11 - c if d else 0))
         d += c
     return passes
+
+
+def kron_mul(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """out[i * n + j] = a[i] * b[j] for contiguous (m, 4), (n, 4) and
+    (m * n, 4) CUDA tensors, one thread per output element."""
+    if any(t.device.type != "cuda" or not t.is_contiguous() for t in (a, b, out)):
+        raise ValueError("previous_routes.kron_mul: contiguous CUDA tensors expected")
+    m, n = a.numel() // 4, b.shape[0]
+    if m * n >= 1 << 32:
+        raise ValueError("previous_routes.kron_mul: the kernel indexes the output with 32 bits")
+    _call("mlt_kron", a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n)
+    return out
+
+
+def kron_parts(mode: str, a: torch.Tensor, b: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """``csrc/kron.cu``'s kernel less one part, on contiguous (m, 4), (n, 4),
+    (m * n, 4) CUDA tensors with n <= 256: ``mode`` "stores" writes b[j] to
+    every out[i * n + j] and multiplies nothing; "multiplies" computes every
+    product and stores none (``out`` is left as it was)."""
+    if any(t.device.type != "cuda" or not t.is_contiguous() for t in (a, b, out)) or b.shape[0] > 256:
+        raise ValueError("previous_routes.kron_parts: contiguous CUDA tensors and n <= 256 expected")
+    code = {"stores": 1, "multiplies": 2}[mode]
+    _call("mlt_kron_parts", a.device, code, a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel() // 4, b.shape[0])
+    return out

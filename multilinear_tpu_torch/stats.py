@@ -2,8 +2,9 @@
 
 ``fetch`` is the ONE place the prover copies a device tensor to the host,
 so ``counts()["d2h_copies"]`` is the number of host synchronizations a
-prove paid (the Fiat-Shamir transcript lives on the host: one small copy
-per round).
+prove paid.  The rounds draw their challenges on the device and copy
+nothing; a PCS prove copies twice (the end of the rounds, the query
+openings), a batched prove three times (the batch root first).
 
 Routing events, bumped where a module picks a kernel, so that a test can
 assert which one ran:

@@ -1,10 +1,10 @@
-"""The sumcheck engine, PCS part: device partial sums and table fold, host
-round polynomial.
+"""The sumcheck engine, PCS part: device partial sums and table fold.
 
 Protocol semantics match the reference engine
 (src/constraint_system/sumcheck.rs): same round-polynomial wire format
 (constant coefficient stripped, quirk Q7), same transcript schedule (absorb
-nonzero coeffs, then draw the challenge), same table fold
+nonzero coeffs, then draw the challenge - on the device, in
+``device_transcript.round_scalars``), same table fold
 lo' = (1-r)*lo + r*hi pairing row i with i + h/2 (MSB fold, big-endian
 variable order).
 
@@ -21,10 +21,10 @@ from typing import List, Sequence
 
 import torch
 
-from .field import limbs, ops
+from .field import ops
 from .field.scalar import Fp, TWO_INV, ZERO
 from .mle import combine_subtables, delta_subtables
-from .poly import Polynomial, PolynomialEvals
+from .poly import Polynomial
 from .transcript import Transcript
 
 PCS_DEGREE = 2  # identity composition times the delta weights
@@ -81,9 +81,9 @@ def _extensions(data: torch.Tensor, total_degree: int) -> List[torch.Tensor]:
 def _partial_sums_kernel(data: torch.Tensor, total_degree: int) -> torch.Tensor:
     """Round polynomial evaluations s(X), X = 1..d, for the identity
     composition, as UNREDUCED int64 limb sums (d, 4): s(X) = sum_i
-    delta_X[i] * mle_X[i] over the extended rows.  The caller copies them to
-    the host anyway and reduces them there (``ops.limb_sums_to_int``): the
-    wide reduction of two elements is ~150 tiny launches in tensor code."""
+    delta_X[i] * mle_X[i] over the extended rows.  The round's Fiat-Shamir
+    kernel reduces them (``device_transcript.round_scalars``): the wide
+    reduction of two elements is ~150 tiny launches in tensor code."""
     sums = [ops.sum_limbs(ops.mul(e[-1], e[0]), dim=0) for e in _extensions(data, total_degree)]
     return torch.stack(sums)
 
@@ -94,20 +94,6 @@ def _fold_kernel(data: torch.Tensor, r_limbs: torch.Tensor) -> torch.Tensor:
     off = data.shape[1] // 2
     lo, hi = data[:, :off], data[:, off:]
     return ops.add(lo, ops.mul(ops.sub(hi, lo), r_limbs))
-
-
-def round_poly_from_sums(sums: Sequence[int], previous_sum: Fp, transcript: Transcript):
-    """Host half of a round: from s(1..d) recover s(0) = previous_sum - s(1),
-    interpolate, absorb the nonzero coefficients, draw the challenge.
-    Returns (SumcheckPoly, r, s(r)).  Mirrors compute_sumcheck_polynomial
-    (sumcheck.rs:174-202) up to the fold."""
-    evals = [ZERO] + [Fp(int(s)) for s in sums]
-    evals[0] = previous_sum - evals[1]
-    pol = PolynomialEvals(evals).interpolate()
-    sc_pol = SumcheckPoly(pol.coeffs[1:])
-    sc_pol.absorb_into(transcript)
-    r = transcript.next_challenge()
-    return sc_pol, r, pol.evaluate(r)
 
 
 class SumcheckTables:
@@ -136,8 +122,10 @@ class SumcheckTables:
         of this round's polynomial."""
         return _partial_sums_kernel(self.data, PCS_DEGREE)
 
-    def fold(self, r: Fp) -> None:
-        self.data = _fold_kernel(self.data, limbs.pack_scalar(r, self.data.device))
+    def fold(self, r: torch.Tensor) -> None:
+        """Fold with the challenge r, a (4,) field element on the tables'
+        device (where the round's Fiat-Shamir kernel drew it)."""
+        self.data = _fold_kernel(self.data, r)
         self.height >>= 1
         if self.debug_checks and not ops.is_canonical(self.data):
             raise ValueError("non-canonical field element in folded sumcheck table")

@@ -210,11 +210,14 @@ def test_session_in_stages_equals_one_shot():
 
 
 def test_host_copies_of_a_batched_prove(monkeypatch):
-    """One copy for the batch root (fingerprint_r depends on it), one per
-    round, the last fold's two elements, and ONE for all openings of the
-    batch tree and the inner layers.  Round 0's fold leaves its root to
-    round 1's copy."""
-    jl, point = _case(3, 5, 9)
+    """One copy for the batch root (fingerprint_r depends on it), ONE at the
+    end of the rounds (every round polynomial and fold root, the last fold's
+    two elements and the device transcript's digest), and ONE for all
+    openings of the batch tree and the inner layers.  Round 0, which runs in
+    the session's constructor, copies nothing: the end of the rounds
+    replays it."""
+    B, n_vars = 3, 5
+    jl, point = _case(B, n_vars, 9)
     shapes = []
     real = stats.fetch
 
@@ -224,10 +227,10 @@ def test_host_copies_of_a_batched_prove(monkeypatch):
 
     monkeypatch.setattr(stats, "fetch", counting)
     _port_prove(jl, point, ProverConfig(device="cpu"))
+    # n polynomials (8 words), n - 1 fold roots (8), 2 elements (8), digest (8)
     assert shapes[0] == (8,)
-    assert shapes[1] == (16,), "round 0: the two sums alone, no fold tree yet"
-    assert shapes[2:6] == [(24,)] * 4
-    assert len(shapes) == 1 + 5 + 1 + 1, shapes
+    assert shapes[1] == (8 * n_vars + 8 * (n_vars - 1) + 8 + 8,)
+    assert len(shapes) == 3, shapes
 
 
 def test_phase_split_of_a_batched_prove():
@@ -257,7 +260,7 @@ def test_fingerprint_horner_order():
     """Quirk Q6: the first item gets the highest power of r."""
     assert fingerprint(Fp(10), [Fp(1), Fp(2), Fp(3)]) == Fp(123)
     codes = limbs.pack_ints([1, 5, 2, 6, 3, 7], shape=(3, 2))
-    got = [int(v) for v in limbs.unpack_ints(_fingerprint_codes(codes, Fp(10)))]
+    got = [int(v) for v in limbs.unpack_ints(_fingerprint_codes(codes, limbs.pack_scalar(Fp(10))))]
     assert got == [123, 567]
     assert [int(v) for v in limbs.unpack_ints(codes).reshape(-1)] == [1, 5, 2, 6, 3, 7]
 

@@ -22,7 +22,7 @@ from multilinear_tpu.field.scalar import Fp as JFp
 from multilinear_tpu.mle import delta_subtables as j_delta_subtables
 from multilinear_tpu.transcript import Transcript as JTranscript
 
-from multilinear_tpu_torch import fri, ntt, sha256, sumcheck
+from multilinear_tpu_torch import device_transcript, fri, ntt, sha256, sumcheck
 from multilinear_tpu_torch.config import NUM_QUERIES
 from multilinear_tpu_torch.field import cuda_ops, limbs, ops
 from multilinear_tpu_torch.field.scalar import P, Fp
@@ -54,7 +54,7 @@ def test_fold_commit_leaves_matches_jax_fold_then_commit(log_n, k):
     r = Fp(_ints(1, 99 + k)[0])
     m = code.shape[0]
     nxt, digs = cuda_ops.fold_commit_leaves(
-        code, ntt.inv_gen_pows(log_domain, "cpu"), 1 << k, fri._rh_scalar(r)
+        code, ntt.inv_gen_pows(log_domain, "cpu"), 1 << k, fri._rh_limbs(r, "cpu")
     )
     jtw = jntt.inv_gen_pows(log_domain)[:, :: 1 << k][:, : m // 2]
     jnxt = jfri._fold_codeword(
@@ -64,7 +64,7 @@ def test_fold_commit_leaves_matches_jax_fold_then_commit(log_n, k):
     assert _same(nxt, jnxt)
     jtree = jfri._commit_code(jnxt)
     assert np.array_equal(digs.numpy().view(np.uint32), np.asarray(jtree.layers[0]).T)
-    nxt2, layers = fri._fold_and_commit(code, ntt.inv_gen_pows(log_domain, "cpu"), k, r)
+    nxt2, layers = fri._fold_and_commit(code, ntt.inv_gen_pows(log_domain, "cpu"), k, fri._rh_limbs(r, "cpu"))
     assert torch.equal(nxt2, nxt)
     assert sha256.digests_to_bytes(layers[-1])[0].tobytes() == jtree.root_bytes()
 
@@ -74,7 +74,7 @@ def test_fold_commit_leaves_smallest_codeword():
     vals = _ints(4, 5)
     tw = _ints(2, 6)
     rh = _ints(1, 7)[0]
-    nxt, digs = cuda_ops.fold_commit_leaves(limbs.pack_ints(vals), limbs.pack_ints(tw), 1, rh)
+    nxt, digs = cuda_ops.fold_commit_leaves(limbs.pack_ints(vals), limbs.pack_ints(tw), 1, limbs.pack_int(rh))
     inv2 = pow(2, -1, P)
     want = [((vals[j] + vals[j + 2]) * inv2 + (vals[j] - vals[j + 2]) * tw[j] * rh) % P for j in range(2)]
     assert [int(v) for v in limbs.unpack_ints(nxt)] == want
@@ -85,14 +85,17 @@ def test_fold_commit_leaves_smallest_codeword():
 def test_fold_commit_wrapper_rejects_bad_input():
     code = limbs.pack_ints(_ints(8, 1))
     tw = limbs.pack_ints(_ints(4, 2))
+    rh = limbs.pack_int(5)
     with pytest.raises(ValueError):
-        cuda_ops.fold_commit_leaves(code[:6], tw, 1, 5)  # not a multiple of 4
+        cuda_ops.fold_commit_leaves(code[:6], tw, 1, rh)  # not a multiple of 4
     with pytest.raises(ValueError):
-        cuda_ops.fold_commit_leaves(code, tw, 2, 5)  # table too short for the stride
+        cuda_ops.fold_commit_leaves(code, tw, 2, rh)  # table too short for the stride
     with pytest.raises(ValueError):
-        cuda_ops.fold_commit_leaves(code, tw, 1, P)  # not canonical
+        cuda_ops.fold_commit_leaves(code, tw, 1, limbs.pack_ints([5, 6]))  # not one element
+    with pytest.raises((ValueError, TypeError)):
+        cuda_ops.fold_commit_leaves(code, tw, 1, 5)  # a host integer: rh lies on the device
     with pytest.raises(ValueError):
-        cuda_ops.fold_commit_leaves(code.to(torch.int64), tw, 1, 5)
+        cuda_ops.fold_commit_leaves(code.to(torch.int64), tw, 1, rh)
 
 
 @pytest.mark.parametrize("log_n", [2, 6])
@@ -158,18 +161,26 @@ def test_pcs_tables_partial_sums_and_fold_match_jax(n_vars):
     s1 = sum(int(ev[i]) * int(dl[i]) for i in range(h // 2, h)) % P
     assert ops.limb_sums_to_int(raw[0].tolist()) == s1
     r = Fp(_ints(1, 70)[0])
-    tables.fold(r)
+    tables.fold(limbs.pack_scalar(r))
     assert tables.height == h // 2
     assert _same(tables.data, jsc._fold_kernel(jdata, jnp.asarray(jlimbs.pack_scalar(JFp(r.v)))))
 
 
 def test_round_poly_wire_format_and_transcript_schedule():
     """Degree 2, constant coefficient stripped (Q7), coefficients absorbed
-    before the challenge is drawn."""
+    before the challenge is drawn - by the round-scalars function the
+    rounds run on the prover's device."""
     prev = Fp(1234567)
     s1, s2 = Fp(99), Fp(P - 5)
     tr = Transcript()
-    pol, r, new_sum = sumcheck.round_poly_from_sums([s1.v, s2.v], prev, tr)
+    state = device_transcript.state_from_host(tr)
+    scal = limbs.pack_ints([prev, 0, 0])
+    coeffs, digest = torch.zeros((2, 4), dtype=torch.int32), torch.zeros(8, dtype=torch.int32)
+    sums = torch.tensor([[s1.v, 0, 0, 0], [s2.v & 0xFFFFFFFF, s2.v >> 32 & 0xFFFFFFFF,
+                                           s2.v >> 64 & 0xFFFFFFFF, s2.v >> 96]], dtype=torch.int64)
+    device_transcript.round_scalars(state, scal, digest, sums=sums, coeffs=coeffs)
+    pol = sumcheck.SumcheckPoly(limbs.unpack_fps(coeffs))
+    new_sum, r, _ = limbs.unpack_fps(scal)
     assert len(pol.nonzero_coeffs) == 2
     full = pol.to_polynomial(prev)
     assert full.evaluate(Fp(0)) + full.evaluate(Fp(1)) == prev
@@ -177,4 +188,4 @@ def test_round_poly_wire_format_and_transcript_schedule():
     ref = Transcript()
     pol.absorb_into(ref)
     assert r == ref.next_challenge() and new_sum == full.evaluate(r)
-    assert tr.random() == ref.random()
+    assert device_transcript.digest(state) == ref.random() == sha256.digest_to_bytes(digest.numpy())

@@ -47,6 +47,7 @@ def test_import_leaves_no_jax_in_sys_modules(probe):
     assert int(probe["MODULES"]) >= 17
     assert "multilinear_tpu_torch.batched_pcs" in probe["NAMES"]
     assert "multilinear_tpu_torch.batched_fri" in probe["NAMES"]
+    assert "multilinear_tpu_torch.device_transcript" in probe["NAMES"]
     assert probe["BAD"] == "[]"
 
 
@@ -74,12 +75,13 @@ def test_every_kernel_source_and_binding_is_present():
         assert os.path.isfile(os.path.join(_build.CSRC, stem + ".cu")), stem
     assert {
         "mul", "addsub", "sha256_words", "sha256_leaves", "merkle_levels", "butterfly", "butterfly2",
-        "twiddle_mul3", "kron", "zm", "fold", "fold_commit",
-        # the two replaced kernels, kept for the smoke script's comparison of
+        "twiddle_mul3", "kron", "zm", "fold", "fold_commit", "round_scalars",
+        # the replaced kernels, kept for the smoke script's comparison of
         # routes, and the probe kernels whose instructions it counts
-        "prev_sha256_words", "prev_zm", "opcount",
+        "prev_sha256_words", "prev_zm", "prev_kron", "opcount",
     } == set(_build.SOURCES)
-    for symbol in ("mlt_sha256_messages", "mlt_sha256_leaves", "mlt_merkle_levels", "mlt_zm_tiles"):
+    for symbol in ("mlt_sha256_messages", "mlt_sha256_leaves", "mlt_merkle_levels", "mlt_zm_tiles",
+                   "mlt_kron_tiles", "mlt_round_scalars"):
         assert symbol in _build.KERNELS, symbol
 
 

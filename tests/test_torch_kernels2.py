@@ -286,15 +286,16 @@ def test_fold_codeword_matches_jax(log_n, k):
     log_domain = log_n + 1 + k
     r = Fp(_ints(1, 99 + k)[0])
     inv_pows = ntt.inv_gen_pows(log_domain, "cpu")
-    got = cuda_ops.fold_codeword(code, inv_pows, 1 << k, fri._rh_scalar(r))
+    rh = fri._rh_limbs(r, "cpu")
+    got = cuda_ops.fold_codeword(code, inv_pows, 1 << k, rh)
     jtw = jntt.inv_gen_pows(log_domain)[:, :: 1 << k][:, : m // 2]
     want = jfri._fold_codeword(
         jcode, jtw, jnp.asarray(jlimbs.pack_scalar(JFp(r.v))), jnp.asarray(jlimbs.pack_scalar(JTWO_INV))
     )
     assert got.shape == (m // 2, 4) and _same(got, want)
-    assert torch.equal(fri._fold_codeword(code, inv_pows, k, r), got)
+    assert torch.equal(fri._fold_codeword(code, inv_pows, k, rh), got)
     if m % 4 == 0:
-        assert torch.equal(cuda_ops.fold_commit_leaves(code, inv_pows, 1 << k, fri._rh_scalar(r))[0], got)
+        assert torch.equal(cuda_ops.fold_commit_leaves(code, inv_pows, 1 << k, rh)[0], got)
 
 
 def test_the_last_fold_of_a_chain_takes_the_standalone_kernel():
@@ -356,12 +357,13 @@ def test_new_wrappers_reject_bad_arguments():
         cuda_ops.kron_mul(x[0], x[1], out=torch.zeros((8, 4), dtype=torch.int32))
     with pytest.raises(ValueError):
         cuda_ops.zm_butterfly(x[:, :, :].reshape(24, 4)[:6].contiguous(), add=True)
+    rh = limbs.pack_int(1)
     with pytest.raises(ValueError):
-        cuda_ops.fold_codeword(x[0], pows, 1, 1)  # odd length
+        cuda_ops.fold_codeword(x[0], pows, 1, rh)  # odd length
     with pytest.raises(ValueError):
-        cuda_ops.fold_codeword(x.reshape(24, 4)[:8].contiguous(), pows, 2, 1)  # table too short
+        cuda_ops.fold_codeword(x.reshape(24, 4)[:8].contiguous(), pows, 2, rh)  # table too short
     with pytest.raises(ValueError):
-        cuda_ops.fold_codeword(x.reshape(24, 4)[:8].contiguous(), pows, 1, P)
+        cuda_ops.fold_codeword(x.reshape(24, 4)[:8].contiguous(), pows, 1, x[0])  # rh: not one element
 
 
 def test_new_wrappers_raise_for_a_tensor_on_an_unknown_device():
@@ -374,7 +376,7 @@ def test_new_wrappers_raise_for_a_tensor_on_an_unknown_device():
         lambda: cuda_ops.twiddle_mul3(m, m[:2], m[:2]),
         lambda: cuda_ops.kron_mul(flat, flat),
         lambda: cuda_ops.zm_butterfly(flat, add=True),
-        lambda: cuda_ops.fold_codeword(flat, flat, 1, 1),
+        lambda: cuda_ops.fold_codeword(flat, flat, 1, flat[0]),
     ):
         with pytest.raises(ValueError):
             call()

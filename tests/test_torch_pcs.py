@@ -142,8 +142,12 @@ def test_session_in_stages_equals_one_shot():
 
 
 def test_one_host_copy_per_round(monkeypatch):
-    """Host Fiat-Shamir costs one device->host copy per round.  Every copy
-    of the prover goes through ``stats.fetch``; count the calls."""
+    """The rounds copy nothing to the host: their Fiat-Shamir runs on the
+    prover's device.  A prove makes two copies in all - the end of the
+    rounds (round polynomials, roots, the last fold's two elements, the
+    device transcript's digest) and the query openings.  Every copy of the
+    prover goes through ``stats.fetch``; count the calls."""
+    want = _both(6)[0]
     jl, point = _case(6, 106)
     evals = limbs.from_jax_limbs(jl)
     pt = [Fp(v) for v in point]
@@ -156,11 +160,35 @@ def test_one_host_copy_per_round(monkeypatch):
         return real(t)
 
     monkeypatch.setattr(stats, "fetch", counting)
-    PCSProof.prove(pt, out, evals, Transcript(), CPU)
-    # 6 rounds (root + two unreduced sums: 24 words each), the last fold's
-    # two elements, and the query openings; no root needs a copy of its own
-    assert shapes[:6] == [(24,)] * 6
-    assert len(shapes) == 6 + 1 + 1, shapes
+    s = PCSProverSession(pt, out, evals, Transcript(), CPU)
+    assert s.launch_rounds() == 6
+    assert shapes == [], "a round copied to the host"
+    s.run_rounds()
+    # 6 polynomials (8 words each), 6 roots (8), 2 elements (8), the digest (8)
+    assert shapes == [(6 * 8 + 6 * 8 + 8 + 8,)]
+    assert pcs_proof_to_bytes(s.finish()) == want
+    assert len(shapes) == 2, shapes
+
+
+@pytest.mark.parametrize("prior", [b"abc", b"x" * 61, bytes(range(69))])
+def test_proof_after_an_unaligned_prior_absorb_matches_jax(prior):
+    """The transcript hops to the device at any byte fill: a prover whose
+    transcript absorbed 3, 61 or 69 bytes first gives the JAX package's
+    bytes (whose device rounds take word-aligned midstates only)."""
+    jl, point = _case(6, 106)
+    evals = limbs.from_jax_limbs(jl)
+    pt = [Fp(v) for v in point]
+    out = evaluate_evals_host(evals, pt)
+    tr, jtr = Transcript(), JTranscript()
+    tr.absorb(prior)
+    jtr.absorb(prior)
+    port_bytes = pcs_proof_to_bytes(PCSProof.prove(pt, out, evals, tr, CPU))
+    jax_bytes = j_to_bytes(JPCSProof.prove([JFp(v) for v in point], JFp(out.v), jnp.asarray(jl), jtr))
+    assert port_bytes == jax_bytes
+    assert tr.random() == jtr.random()
+    vtr = Transcript()
+    vtr.absorb(prior)
+    pcs_proof_from_bytes(port_bytes).verify(vtr)
 
 
 def test_phase_split_marks_each_phase_once():
