@@ -9,12 +9,15 @@ from the machine code of probe kernels), holds each kernel against its plain
 PyTorch version on the card (all values are integers: the tolerance is 0
 mismatches) and fails if one reads above 105 % of its bound, then drives the
 port's main paths - a PCS prove and verify through ``PCSProof.prove`` /
-``PCSProof.verify`` at 2^16, 2^20 and 2^24 evaluations, and a batched PCS
+``PCSProof.verify`` at 2^16, 2^20 and 2^24 evaluations, a batched PCS
 prove and verify through ``BatchedPCSProof.prove`` / ``.verify`` at 10 x 2^20
-and 10 x 2^22 - checks byte parity with the CPU path and the golden digests
-of both proof types, and checks that a corrupted proof of either type is
-rejected.  The rounds of a prove draw their challenges on the card: the
-largest prove of each type also runs its rounds under
+and 10 x 2^22, and the constraint-system SNARK through
+``System.prove_snark`` / ``System.verify_snark`` on a width-1 trace of 2^24
+rows (W1) and a 4-column Pythagorean trace of 2^22 rows (P4) - checks byte
+parity with the CPU path and the golden digests of all three proof types,
+and checks that a corrupted proof of each type is rejected.  The rounds of a
+prove draw their challenges on the card: the largest prove of each type (and
+the sumcheck of each SNARK) also runs its rounds under
 ``torch.cuda.set_sync_debug_mode("error")``, and a prove that makes more
 device->host copies than ``MAX_D2H`` fails.
 
@@ -56,8 +59,16 @@ from multilinear_tpu_torch.serialize import (
     batched_pcs_proof_to_bytes,
     pcs_proof_from_bytes,
     pcs_proof_to_bytes,
+    snark_proof_from_bytes,
+    snark_proof_to_bytes,
 )
-from multilinear_tpu_torch.testdata import batched_pcs_golden_inputs, pcs_golden_inputs
+from multilinear_tpu_torch.sumcheck import vandermonde_inv
+from multilinear_tpu_torch.system import (
+    Commitment, ConstraintSet, SnarkProverSession, System, Trace, WitnessLayout,
+)
+from multilinear_tpu_torch.testdata import (
+    SNARK_CONSTRAINTS, batched_pcs_golden_inputs, pcs_golden_inputs, snark_golden_columns,
+)
 from multilinear_tpu_torch.transcript import Transcript
 from multilinear_tpu_torch.utils import collect_phases
 
@@ -65,6 +76,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PCS_LOG_SIZES = (16, 20, 24)
 BATCH_POLYS = 10  # the reference batched workload's width
 BATCHED_LOG_SIZES = (20, 22)
+# The SNARK paths: (label, constraint set of testdata.SNARK_CONSTRAINTS, log2
+# rows).  W1 is bench.py's snark metric (the reference snark_test: one column,
+# the trivial constraint); P4 is bench.py's sumcheck metric (4 columns,
+# Pythagorean triples and a sum column), whose sumcheck a wrong composition
+# would break - W1's partial sums are all zero.
+SNARK_PATHS = (("snark W1 2^24", "width1", 24), ("snark P4 4 x 2^22", "pythagorean", 22))
 
 # The card's memory rate is the published peak of one H100 SXM (NVIDIA's data
 # sheet).  The data sheet has no row for 32-bit integer arithmetic outside the
@@ -173,6 +190,13 @@ KERNELS = {
     "round_scalars": {
         "source": "multilinear_tpu_torch/csrc/round_scalars.cu",
         "replaces": "multilinear_tpu/pcs.py:84",
+    },
+    # a standalone sumcheck round's Fiat-Shamir scalars (the second entry of
+    # round_scalars.cu): the jnp scalar tail of `_sc_round_body`, inside the
+    # TPU's round program, not a TPU kernel
+    "sumcheck_round_scalars": {
+        "source": "multilinear_tpu_torch/csrc/round_scalars.cu",
+        "replaces": "multilinear_tpu/sumcheck.py:352",
     },
 }
 
@@ -521,6 +545,84 @@ def round_scalars_cases(dev, rng, main: dict) -> list:
     return rows
 
 
+def sumcheck_round_instructions(degree: int, fill: int) -> float:
+    """Instructions a standalone round cannot do without, for the one thread
+    that issues at most one a clock whatever the pipe: the d(d+1) multiplies
+    and d^2 additions of rows 1..d of the V^-1 product (row 0 is e0: c0 = s0
+    needs no work), the d multiplies and d additions of Horner,
+    s0 = prev - s1, and the SHA-256 compressions of the absorbed coefficients
+    and of the digest, at the counts of the `bounds` phase.  The reductions
+    of the lane sums and the byte moves are left out: the bound is below the
+    work."""
+    total = fill + 16 * degree
+    blocks = total // 64 + (1 if total % 64 <= 55 else 2)
+    return float((degree * (degree + 1) + degree) * OPS["mul"].sum() + (degree * degree + degree) * OPS["add"].sum()
+                 + OPS["sub"].sum() + blocks * OPS["sha_block"].sum())
+
+
+def sumcheck_round_scalars_cases(dev, rng, main: dict) -> list:
+    """The standalone round mode against its plain version on the card over
+    seeded transcript states (fills 0-63, one to three blocks absorbed
+    before), total degrees 2-8, lane sums to 2^63 - 1 and prev at 0 and p - 1;
+    the timed row is P4's round (degree 3), its device time from a replayed
+    CUDA graph of back-to-back launches, its bound
+    `sumcheck_round_instructions` at one instruction a clock."""
+    lane_cases = ((1 << 55) - 1, 1 << 63, 1 << 32, 1)
+
+    def inputs(case: int, degree: int):
+        host = Transcript()
+        host.absorb(rng.bytes(case % 64 + 64 * (case % 3)))
+        prev = (0, P - 1)[case % 2] if case % 5 == 0 else int.from_bytes(rng.bytes(16), "little") % P
+        sums = torch.from_numpy(rng.integers(0, lane_cases[case % 4], size=(degree, 4),
+                                             dtype=np.uint64).astype(np.int64)).to(dev)
+        if case % 7 == 0:
+            sums[case % degree].fill_(0 if case % 14 else (1 << 63) - 1)
+        return (dtr.state_from_host(host, dev), limbs.pack_int(prev, device=dev), sums,
+                vandermonde_inv(degree + 1, dev))
+
+    def launch(fn, state, prev, sums, vinv):
+        state, prev = state.clone(), prev.clone()
+        digest = torch.zeros(8, dtype=torch.int32, device=dev)
+        coeffs = torch.zeros((sums.shape[0], 4), dtype=torch.int32, device=dev)
+        r = torch.zeros(4, dtype=torch.int32, device=dev)
+        fn(state, prev, digest, sums, vinv, coeffs, r)
+        return state, prev, digest, coeffs, r
+
+    bad, worst, n = 0, 0, 0
+    for degree in range(2, 9):
+        for case in range(64):
+            args = inputs(case, degree)
+            res = compare(launch(dtr.sumcheck_round_scalars, *args), launch(dtr.sumcheck_round_scalars_plain, *args))
+            bad += res["mismatches"]
+            worst = max(worst, res["max_abs_err"])
+            n += 1
+    rows = [{"kernel": "sumcheck_round_scalars", "case": f"{n} launches: 64 seeded states x total degrees 2-8, "
+             "fills 0-63, lanes to 2^63 - 1, prev 0 and p-1", "mismatches": bad, "max_abs_err": worst}]
+    if bad:
+        raise RuntimeError(f"kernel sumcheck_round_scalars disagrees with its plain version: {rows[-1]}")
+
+    degree = 3
+    state, prev, sums, vinv = inputs(1, degree)  # a fill of 1 + 64 bytes
+    digest = torch.empty(8, dtype=torch.int32, device=dev)
+    coeffs = torch.empty((degree, 4), dtype=torch.int32, device=dev)
+    r = torch.empty(4, dtype=torch.int32, device=dev)
+    instructions = sumcheck_round_instructions(degree, 1)
+    bound_ms = instructions / (PEAK["max_sm_mhz"] * 1e6) * 1e3
+    row = {"kernel": "sumcheck_round_scalars", "case": "main: a degree-3 round (P4)",
+           "shapes": [[dtr.STATE_WORDS], [degree, 4], [degree + 1, degree + 1, 4]], "mismatches": 0,
+           "max_abs_err": worst,
+           "kernel_ms": graph_ms(lambda: dtr.sumcheck_round_scalars(state, prev, digest, sums, vinv, coeffs, r),
+                                 copies=100),
+           "plain_ms": time_ms(lambda: dtr.sumcheck_round_scalars_plain(state, prev, digest, sums, vinv, coeffs, r),
+                               5),
+           "bound_ms": bound_ms, "bound_by": "operations", "instructions": instructions}
+    row["bound_share"] = bound_ms / row["kernel_ms"]
+    print(json.dumps(row), file=sys.stderr, flush=True)
+    main.setdefault("sumcheck_round_scalars", row)
+    rows.append(row)
+    return rows
+
+
 def kernels_phase(dev) -> dict:
     """Every kernel at the shape the 2^24 prove gives it, at a ragged shape,
     and on the edge values.  Returns {name: timed main-shape row}."""
@@ -863,6 +965,7 @@ def kernels_phase(dev) -> dict:
     # and at 0 and 2^63 - 1, prev at 0 and p - 1, a pending root or none,
     # and the last element's absorb; each launch against its plain version
     rows.extend(round_scalars_cases(dev, rng, main))
+    rows.extend(sumcheck_round_scalars_cases(dev, rng, main))
     clear_caches()
     torch.cuda.empty_cache()
     emit("kernels", tolerance="0 mismatches (integers)", cases=rows)
@@ -1220,8 +1323,10 @@ def timed_prove(prove, to_bytes, from_bytes) -> dict:
 
 
 # d2h copies a prove may make: the end of the rounds and the query openings,
-# and for the batched prove also the batch root that fingerprint_r needs
-MAX_D2H = {"pcs": 2, "batched_pcs": 3}
+# and for the batched prove also the batch root that fingerprint_r needs; a
+# SNARK prove may make those of its PCS and 2 more (the end of the sumcheck
+# rounds, which also brings the outputs)
+MAX_D2H = {"pcs": 2, "batched_pcs": 3, "snark": 1}
 
 
 def rounds_without_sync(session, to_bytes, want_sha256: str) -> dict:
@@ -1304,6 +1409,151 @@ def batched_pcs_phase(dev, log_sizes) -> None:
     emit("batched_pcs", sizes=results)
 
 
+def full_random_field(rng: np.random.Generator, shape, device) -> torch.Tensor:
+    """Field tensor shape+(4,) of uniform 128-bit values (a top limb of all
+    ones, the only one that could reach p, is lowered by one)."""
+    raw = rng.integers(0, 2**32, size=(int(np.prod(shape)), 4), dtype=np.uint32)
+    raw[raw[:, 3] == 0xFFFFFFFF, 3] = 0xFFFFFFFE
+    return torch.from_numpy(raw.view(np.int32)).to(device).reshape(tuple(shape) + (4,))
+
+
+def snark_trace(kind: str, log_n: int, dev) -> Trace:
+    """W1 ("width1"): one column of uniform 128-bit residues, numpy seed
+    3000 + log_n.  P4 ("pythagorean"): rows a = m^2 - n^2, b = 2mn,
+    c = m^2 + n^2, d = a + b from uniform m, n (seed 3100 + log_n), made on the
+    card: every row satisfies both constraints, over the whole field."""
+    h = 1 << log_n
+    if kind == "width1":
+        return Trace.from_columns(full_random_field(np.random.default_rng(3000 + log_n), (1, h), dev))
+    rng = np.random.default_rng(3100 + log_n)
+    m, n = full_random_field(rng, (h,), dev), full_random_field(rng, (h,), dev)
+    m2, n2 = ops.mul(m, m), ops.mul(n, n)
+    a, b = ops.sub(m2, n2), ops.mul(ops.add(m, m), n)
+    return Trace.from_columns(torch.stack([a, b, ops.add(m2, n2), ops.add(a, b)]))
+
+
+def snark_constraints(kind: str, width: int):
+    constraints, degree = SNARK_CONSTRAINTS[kind]
+    return ConstraintSet(constraints, degree), WitnessLayout(columns=width)
+
+
+def snark_prove(kind: str, trace: Trace, config: ProverConfig):
+    transcript = Transcript()
+    return System.prover(transcript, *snark_constraints(kind, trace.width), trace, config).prove_snark(transcript)
+
+
+def snark_verify(kind: str, width: int, log_n: int, proof_bytes: bytes) -> None:
+    transcript = Transcript()
+    verifier = System.verifier(transcript, *snark_constraints(kind, width), Commitment(), log_n)
+    verifier.verify_snark(transcript, snark_proof_from_bytes(proof_bytes))
+
+
+def snark_rounds_without_sync(kind: str, trace: Trace, config: ProverConfig, want_sha256: str) -> dict:
+    """Drive a SNARK session whose sumcheck rounds run under
+    ``torch.cuda.set_sync_debug_mode("error")``; the copy that ends them
+    (with the outputs) and the PCS run after the mode is reset, and the
+    proof must be the timed prove's, byte for byte.  The host clock around the rounds is
+    the host's issue time: nothing in them waits for the card."""
+    session = SnarkProverSession(Transcript(), *snark_constraints(kind, trace.width), trace, config=config)
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        launched = session.launch_sumcheck_rounds()
+        issue_s = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    copies_in_rounds = stats.counts().get("d2h_copies", 0)
+    counted = {k: v for k, v in launch_counts().items() if v}
+    digest = hashlib.sha256(snark_proof_to_bytes(session.finish())).hexdigest()
+    if copies_in_rounds or digest != want_sha256:
+        raise RuntimeError(f"SNARK sumcheck under the sync check: {copies_in_rounds} copies, proof {digest} "
+                           f"against {want_sha256}")
+    return {"sync_debug_mode": "error", "rounds_launched": launched, "d2h_copies_in_rounds": copies_in_rounds,
+            "counted_launches_in_rounds": counted,
+            "counted_launches_per_round": sum(counted.values()) / launched,
+            "host_issue_s_per_round": issue_s / launched, "proof_equals_timed_prove": True}
+
+
+def snark_phase(dev) -> None:
+    """Each SNARK path once through ``System.prove_snark`` (timed to the end
+    of the card's work) and ``System.verify_snark`` on the host, then its
+    sumcheck rounds once more under the sync check."""
+    config = ProverConfig(device=str(dev))
+    results = []
+    for label, kind, log_n in SNARK_PATHS:
+        trace = snark_trace(kind, log_n, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with collect_phases() as phases:
+            t0 = time.perf_counter()
+            proof = snark_prove(kind, trace, config)
+            torch.cuda.synchronize()
+            prove_s = time.perf_counter() - t0
+        d2h = stats.counts().get("d2h_copies", 0)
+        PATH_LAUNCHES[label] = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        blob = snark_proof_to_bytes(proof)
+        digest = hashlib.sha256(blob).hexdigest()
+        gc.collect()  # keep a collection of the prover's garbage out of the verifier's time
+        t0 = time.perf_counter()
+        snark_verify(kind, trace.width, log_n, blob)
+        verify_s = time.perf_counter() - t0
+        pcs_kind = "pcs" if trace.width == 1 else "batched_pcs"
+        if (len(proof.sumcheck_polynomials) != log_n or len(proof.outputs) != trace.width
+                or any(len(p.nonzero_coeffs) != SNARK_CONSTRAINTS[kind][1] + 1 for p in proof.sumcheck_polynomials)
+                or (pcs_kind == "pcs") != isinstance(proof.pcs, PCSProof)):
+            raise RuntimeError(f"{label}: the proof has the wrong shape")
+        limit = MAX_D2H[pcs_kind] + MAX_D2H["snark"]
+        if d2h > limit:
+            raise RuntimeError(f"{label}: the prove made {d2h} device->host copies, at most {limit} allowed")
+        snark_keys = ("snark_tables", "sumcheck_rounds")
+        del proof
+        results.append({
+            "path": label, "width": trace.width, "log_n": log_n, "prove_s": prove_s, "verify_s": verify_s,
+            "phases_s": {"tables": phases.get("snark_tables"), "sumcheck_rounds": phases.get("sumcheck_rounds"),
+                         "pcs": sum(v for k, v in phases.items() if k not in snark_keys),
+                         "pcs_parts": {k: v for k, v in phases.items() if k not in snark_keys}},
+            "proof_bytes": len(blob), "proof_sha256": digest, "peak_device_bytes": peak, "d2h_copies": d2h,
+            "max_d2h": limit, "launches": PATH_LAUNCHES[label],
+            "rounds_without_sync": snark_rounds_without_sync(kind, trace, config, digest),
+        })
+        del trace
+        clear_caches()
+        torch.cuda.empty_cache()
+    emit("snark", paths=results)
+
+
+def profile_snark_rounds(dev, label: str, kind: str, log_n: int) -> None:
+    """One traced run of a SNARK path's sumcheck rounds alone: device
+    kernels per round (every launch, the tensor code's too) and the card's
+    busy share while the host issues them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    config = ProverConfig(device=str(dev))
+    trace = snark_trace(kind, log_n, dev)
+    session = SnarkProverSession(Transcript(), *snark_constraints(kind, trace.width), trace, config=config)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rounds = session.launch_sumcheck_rounds()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = [e for e in prof.key_averages() if e.device_time_total > 0 and
+          e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in ev) / 1e6
+    kernels = sum(e.count for e in ev)
+    emit("profile_sumcheck_rounds", path=label, rounds=rounds, traced_rounds_s=wall, device_busy_s=busy,
+         device_idle_share=max(0.0, 1 - busy / wall), device_kernels=kernels, device_kernels_per_round=kernels / rounds,
+         top=[{"name": e.key[:60], "calls": e.count, "device_ms": e.device_time_total / 1e3}
+              for e in sorted(ev, key=lambda e: -e.device_time_total)[:10]])
+    del session, trace
+    clear_caches()
+    torch.cuda.empty_cache()
+
+
 def _golden(name: str) -> dict:
     with open(os.path.join(HERE, "multilinear_tpu_torch", "testdata", name)) as f:
         return json.load(f)
@@ -1360,17 +1610,32 @@ def parity_phase(dev):
         tiny[n_vars] = out[places[0]] == out["cpu"]
     PATH_LAUNCHES["pcs 2^1, 2^2, 2^3"] = launch_counts()
 
+    sgolden = _golden("snark_golden.json")
+    snark = {}
+    for kind in SNARK_CONSTRAINTS:
+        g = sgolden[kind]
+        cols = snark_golden_columns(kind, g["log_n"], g["seed"])
+        for where in places:
+            trace = Trace.from_columns(limbs.pack_ints([v for c in cols for v in c],
+                                                       shape=(len(cols), 1 << g["log_n"]), device=where))
+            out[where] = snark_proof_to_bytes(snark_prove(kind, trace, ProverConfig(device=where)))
+        digest = hashlib.sha256(out[places[0]]).hexdigest()
+        snark[kind] = {"width": len(cols), "log_n": g["log_n"], "card_equals_cpu": out[places[0]] == out["cpu"],
+                       "sha256": digest, "golden": g["sha256"], "bytes": out[places[0]]}
+
     ok = (pcs_card == pcs_cpu and pcs_digest == golden["sha256"]
-          and b_card == b_cpu and b_digest == bgolden["sha256"] and all(tiny.values()))
+          and b_card == b_cpu and b_digest == bgolden["sha256"] and all(tiny.values())
+          and all(v["card_equals_cpu"] and v["sha256"] == v["golden"] for v in snark.values()))
     emit("parity",
          pcs={"log_n": golden["log_n"], "card_equals_cpu": pcs_card == pcs_cpu, "sha256": pcs_digest,
               "golden": golden["sha256"]},
          batched_pcs={"n_polys": bgolden["n_polys"], "log_n": bgolden["log_n"],
                       "card_equals_cpu": b_card == b_cpu, "sha256": b_digest, "golden": bgolden["sha256"]},
-         tiny_pcs_card_equals_cpu=tiny, ok=ok)
+         tiny_pcs_card_equals_cpu=tiny,
+         snark={k: {f: v for f, v in r.items() if f != "bytes"} for k, r in snark.items()}, ok=ok)
     if not ok:
         raise RuntimeError("proof bytes differ between the card, the CPU path and the fixture")
-    return pcs_card, b_card
+    return pcs_card, b_card, {k: (r["width"], r["log_n"], r["bytes"]) for k, r in snark.items()}
 
 
 def messages_phase(dev) -> None:
@@ -1390,12 +1655,14 @@ def messages_phase(dev) -> None:
         raise RuntimeError("sha256_words disagrees with hashlib")
 
 
-def reject_phase(kind: str, proof_bytes: bytes, from_bytes) -> None:
-    from_bytes(proof_bytes).verify(Transcript())
+def reject_phase(kind: str, proof_bytes: bytes, verify) -> None:
+    """``verify(proof_bytes)`` passes; with one bit flipped in the middle it
+    must raise."""
+    verify(proof_bytes)
     bad = bytearray(proof_bytes)
     bad[len(bad) // 2] ^= 0x01
     try:
-        from_bytes(bytes(bad)).verify(Transcript())
+        verify(bytes(bad))
     except (FriError, ValueError) as e:
         emit("reject", proof=kind, raised=type(e).__name__, message=str(e))
         return
@@ -1455,6 +1722,7 @@ def main() -> int:
     routes_phase(dev, log_sizes[-1], batched_sizes[-1])
     pcs_phase(dev, log_sizes)
     batched_pcs_phase(dev, batched_sizes)
+    snark_phase(dev)
     if args.profile:
         config = ProverConfig(device=str(dev))
         evals, point, output = seeded_claim(log_sizes[-1], 1000 + log_sizes[-1], dev)
@@ -1465,16 +1733,23 @@ def main() -> int:
         profile_phase(dev, f"batched pcs {BATCH_POLYS} x 2^{batched_sizes[-1]}",
                       lambda: BatchedPCSProof.prove(claim, polys, Transcript(), config))
         del polys
-    pcs_bytes, batched_bytes = parity_phase(dev)
-    reject_phase("pcs", pcs_bytes, pcs_proof_from_bytes)
-    reject_phase("batched_pcs", batched_bytes, batched_pcs_proof_from_bytes)
+        for label, kind, log_n in SNARK_PATHS:
+            trace = snark_trace(kind, log_n, dev)
+            profile_phase(dev, label, lambda: snark_prove(kind, trace, config))
+            del trace
+            profile_snark_rounds(dev, label, kind, log_n)
+    pcs_bytes, batched_bytes, snark_bytes = parity_phase(dev)
+    reject_phase("pcs", pcs_bytes, lambda b: pcs_proof_from_bytes(b).verify(Transcript()))
+    reject_phase("batched_pcs", batched_bytes, lambda b: batched_pcs_proof_from_bytes(b).verify(Transcript()))
+    for kind, (width, log_n, blob) in snark_bytes.items():
+        reject_phase(f"snark {kind}", blob, lambda b: snark_verify(kind, width, log_n, b))
     messages_phase(dev)
 
     # the driven paths: the largest PCS prove, the largest batched prove, the
-    # tiny proves that reach the single-stage butterfly, and the message-
-    # hashing entry, which no prove calls
+    # tiny proves that reach the single-stage butterfly, the message-hashing
+    # entry, which no prove calls, and the two SNARK proves
     main_paths = [f"pcs 2^{log_sizes[-1]}", f"batched pcs {BATCH_POLYS} x 2^{batched_sizes[-1]}",
-                  "pcs 2^1, 2^2, 2^3", MESSAGES_PATH]
+                  "pcs 2^1, 2^2, 2^3", MESSAGES_PATH] + [label for label, _, _ in SNARK_PATHS]
     kernels = []
     for name, meta in KERNELS.items():
         row = timed[name]

@@ -26,11 +26,27 @@
 // A last-element launch (elem given, no sums) absorbs elem[0] - the element
 // every entry of the last fold's codeword must equal - and writes the digest.
 //
+// A standalone sumcheck round (sumcheck_round_scalars_kernel, a second
+// entry of this file) has no roots and any total degree d = 1..16:
+//   1. reduces the d unreduced int64 limb sums s(1)..s(d) mod p;
+//   2. s0 = prev - s1;
+//   3. the d + 1 coefficients c = V^-1 (s0, s1, ..., sd), V^-1 read from a
+//      (d+1, d+1) table of field elements in device memory; its row 0 is
+//      e0 (c0 = p(0) = s0), so only rows 1..d are multiplied;
+//   4. absorbs c1..cd as 16 little-endian bytes each (Q7, Q9), draws r;
+//   5. writes c1..cd into `coeffs` (the round's slot), prev' = p(r) (Horner)
+//      over `prev`, and r into `r_out` (the round's slot of the randoms,
+//      where the table fold reads it);
+//   6. writes the digest and the new state.
+// It replaces the jnp scalar tail of `_sc_round_body` in the JAX package
+// (multilinear_tpu/sumcheck.py:352-372), which the TPU runs inside the
+// round's XLA program, not as a Pallas kernel.
+//
 // Bound on an H100: one thread, a chain of dependent integer instructions
-// (up to three SHA-256 compressions, four field multiplies): the issue rate of
-// one warp, about one instruction a clock.  The absorb loop runs byte by byte
-// through shared memory; every compression of a launch is inlined at one of
-// two sites (absorb, digest), so the machine code stays small.
+// (SHA-256 compressions, field multiplies): the issue rate of one warp, about
+// one instruction a clock.  The absorb loop runs byte by byte through shared
+// memory; every compression of a launch is inlined at one of two sites
+// (absorb, digest), so the machine code stays small.
 #include "field.cuh"
 #include "sha256.cuh"
 
@@ -41,8 +57,8 @@ struct tr_state {
   u32 total;    // bytes absorbed in all
 };
 
-// Absorb `len` bytes (len <= 64): byte p of a block is byte p ^ 3 of the
-// little-endian words that hold it big-endian.
+// Absorb `len` bytes: byte p of a block is byte p ^ 3 of the little-endian
+// words that hold it big-endian.
 __device__ __forceinline__ void tr_absorb(tr_state& s, const unsigned char* msg, int len) {
   unsigned char* bytes = reinterpret_cast<unsigned char*>(s.buf);
 #pragma unroll 1
@@ -200,5 +216,76 @@ extern "C" int mlt_round_scalars(void* state, const void* root, const void* elem
   round_scalars_kernel<<<1, 1, 0, stream>>>(
       static_cast<int*>(state), static_cast<const int*>(root), elem,
       static_cast<const unsigned long long*>(sums), scal, coeffs, static_cast<int*>(digest));
+  return (int)cudaGetLastError();
+}
+
+// The most total degree a standalone round takes: its evaluations and
+// coefficients live in local arrays of SC_MAX_DEGREE + 1 elements, and the
+// absorbed coefficients in one shared buffer.
+#define SC_MAX_DEGREE 16
+
+__global__ void sumcheck_round_scalars_kernel(int* __restrict__ state,
+                                              const unsigned long long* __restrict__ sums,
+                                              const void* __restrict__ vinv, int degree,
+                                              void* __restrict__ prev, void* __restrict__ coeffs,
+                                              void* __restrict__ r_out, int* __restrict__ digest) {
+  __shared__ tr_state s;
+  __shared__ unsigned char msg[16 * SC_MAX_DEGREE];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) s.st[j] = (u32)state[j];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) s.buf[j] = (u32)state[8 + j];
+  s.fill = (u32)state[24];
+  s.total = (u32)state[25];
+
+  const int n = degree + 1;
+  fp ev[SC_MAX_DEGREE + 1], c[SC_MAX_DEGREE + 1];
+#pragma unroll 1
+  for (int i = 1; i < n; ++i) ev[i] = reduce_lane_sums(sums + 4 * (i - 1));
+  ev[0] = fp_sub(fp_load(prev, 0), ev[1]);
+  c[0] = ev[0];
+  int len = 0;
+#pragma unroll 1
+  for (int j = 1; j < n; ++j) {
+    fp acc = fp_mul(fp_load(vinv, (long long)j * n), ev[0]);
+#pragma unroll 1
+    for (int i = 1; i < n; ++i) acc = fp_add(acc, fp_mul(fp_load(vinv, (long long)j * n + i), ev[i]));
+    c[j] = acc;
+    put_fp(msg, len, acc);
+  }
+  tr_absorb(s, msg, len);
+  u32 d[8];
+  tr_digest(s, d);
+
+  fp r;  // the first 16 digest bytes as a little-endian u128: < 2^128 < 2p
+  r.lo = ((u64)sha_bswap(d[1]) << 32) | sha_bswap(d[0]);
+  r.hi = ((u64)sha_bswap(d[3]) << 32) | sha_bswap(d[2]);
+  r = fp_canon(r, 0ull);
+  fp acc = c[n - 1];
+#pragma unroll 1
+  for (int j = n - 2; j >= 0; --j) acc = fp_add(fp_mul(acc, r), c[j]);
+  fp_store(prev, 0, acc);
+  fp_store(r_out, 0, r);
+#pragma unroll 1
+  for (int j = 1; j < n; ++j) fp_store(coeffs, j - 1, c[j]);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    digest[j] = (int)d[j];
+    state[j] = (int)s.st[j];
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j) state[8 + j] = (int)s.buf[j];
+  state[24] = (int)s.fill;
+  state[25] = (int)s.total;
+}
+
+extern "C" int mlt_sumcheck_round_scalars(void* state, const void* sums, const void* vinv, int degree,
+                                          void* prev, void* coeffs, void* r_out, void* digest, int device,
+                                          cudaStream_t stream) {
+  if (degree < 1 || degree > SC_MAX_DEGREE) return (int)cudaErrorInvalidValue;
+  device_guard guard(device);
+  sumcheck_round_scalars_kernel<<<1, 1, 0, stream>>>(
+      static_cast<int*>(state), static_cast<const unsigned long long*>(sums), vinv, degree, prev,
+      coeffs, r_out, static_cast<int*>(digest));
   return (int)cudaGetLastError();
 }

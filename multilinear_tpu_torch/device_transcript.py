@@ -14,10 +14,15 @@ the fill), the fill in bytes and the total length in bytes.  Absorbs are
 byte-granular: any midstate hops, whatever the host absorbed before (the
 JAX package's device transcript takes word-aligned midstates only).
 
+The standalone sumcheck (``sumcheck.DeviceSumcheckRounds``) has rounds of
+its own schedule - no roots, any total degree, interpolation through
+V^-1 - and a second entry of the same kernel source,
+:func:`sumcheck_round_scalars`.
+
 The functions here are plain Python over that tensor - what the CPU runs,
-and what the kernel is held against.  ``round_scalars`` is the kernel's
-wrapper: a CUDA tensor launches it (or raises), a CPU tensor runs
-:func:`round_scalars_plain`.
+and what the kernels are held against.  ``round_scalars`` and
+``sumcheck_round_scalars`` are the kernels' wrappers: a CUDA tensor launches
+the kernel (or raises), a CPU tensor runs the ``*_plain`` version.
 """
 
 from __future__ import annotations
@@ -35,7 +40,11 @@ from .transcript import Sha256Midstate, Transcript
 STATE_WORDS = 26
 _FILL, _TOTAL = 24, 25
 
-_LAUNCHES = {"round_scalars": 0}
+# The most total degree of a standalone sumcheck round (csrc/round_scalars.cu,
+# SC_MAX_DEGREE); a larger one raises on every device.
+MAX_SUMCHECK_DEGREE = 16
+
+_LAUNCHES = {"round_scalars": 0, "sumcheck_round_scalars": 0}
 
 
 def launch_counts() -> dict:
@@ -43,7 +52,8 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
-    _LAUNCHES["round_scalars"] = 0
+    for k in _LAUNCHES:
+        _LAUNCHES[k] = 0
 
 
 class TranscriptMismatch(RuntimeError):
@@ -200,3 +210,74 @@ def round_scalars(state: torch.Tensor, scal: torch.Tensor, digest_out: torch.Ten
     if rc != 0:
         raise RuntimeError(f"CUDA kernel round_scalars failed to launch (cudaError {rc})")
     _LAUNCHES["round_scalars"] += 1
+
+
+# ---------------------------------------------------------------------------
+# a standalone sumcheck round's scalars: the kernel and its plain version
+# ---------------------------------------------------------------------------
+
+
+def sumcheck_round_scalars_plain(state, prev, digest_out, sums, vinv, coeffs, r_out) -> None:
+    """What one launch of ``csrc/round_scalars.cu``'s standalone entry does,
+    in place: reduce the d unreduced limb sums ``sums`` ((d, 4) int64) of
+    s(1)..s(d), s0 = prev - s1 with prev in ``prev`` ((4,)), the coefficients
+    c0 = s0 and c1..cd = rows 1..d of V^-1 (s0..sd) with V^-1 in ``vinv``
+    ((d+1, d+1, 4); its row 0 is e0), absorb c1..cd (Q7, Q9), draw r; write
+    c1..cd into ``coeffs`` (d, 4), prev' = p(r) into ``prev``, r into
+    ``r_out`` (4,) and the digest into ``digest_out`` (8,)."""
+    mid = _unpack(state)
+    ev = [ops.limb_sums_to_int(lanes) for lanes in sums.detach().cpu().tolist()]
+    ev = [(limbs.unpack_int(prev) - ev[0]) % P] + ev
+    n = len(ev)
+    vi = limbs.unpack_ints(vinv)
+    c = [ev[0]] + [sum(int(vi[j, i]) * ev[i] for i in range(n)) % P for j in range(1, n)]
+    mid.update(b"".join(x.to_bytes(16, "little") for x in c[1:]))
+    d = mid.digest()
+    r = int.from_bytes(d[:16], "little") % P
+    acc = 0
+    for x in reversed(c):
+        acc = (acc * r + x) % P
+    prev.copy_(limbs.pack_int(acc))
+    r_out.copy_(limbs.pack_int(r))
+    coeffs.copy_(limbs.pack_ints(c[1:]))
+    digest_out.copy_(torch.from_numpy(np.frombuffer(d, dtype=">u4").astype(np.uint32).view(np.int32)))
+    state.copy_(_pack(mid, "cpu"))
+
+
+def sumcheck_round_scalars(state: torch.Tensor, prev: torch.Tensor, digest_out: torch.Tensor,
+                           sums: torch.Tensor, vinv: torch.Tensor, coeffs: torch.Tensor,
+                           r_out: torch.Tensor) -> None:
+    """One standalone sumcheck round's Fiat-Shamir scalars, in place on the
+    device that holds ``state``; arguments as in
+    :func:`sumcheck_round_scalars_plain`.  The total degree d is
+    ``sums.shape[0]``, 1 <= d <= ``MAX_SUMCHECK_DEGREE``."""
+    d = sums.shape[0] if isinstance(sums, torch.Tensor) and sums.dim() == 2 else 0
+    if not 1 <= d <= MAX_SUMCHECK_DEGREE:
+        raise ValueError(f"sumcheck_round_scalars: total degree must be 1..{MAX_SUMCHECK_DEGREE}, "
+                         f"got sums of shape {tuple(getattr(sums, 'shape', ()))}")
+    _check("state", state, torch.int32, (STATE_WORDS,))
+    _check("prev", prev, torch.int32, (4,))
+    _check("digest_out", digest_out, torch.int32, (8,))
+    _check("sums", sums, torch.int64, (d, 4))
+    _check("vinv", vinv, torch.int32, (d + 1, d + 1, 4))
+    _check("coeffs", coeffs, torch.int32, (d, 4))
+    _check("r_out", r_out, torch.int32, (4,))
+    if any(t.device != state.device for t in (prev, digest_out, sums, vinv, coeffs, r_out)):
+        raise ValueError("sumcheck_round_scalars: every tensor must lie on the state's device")
+    if state.device.type == "cpu":
+        sumcheck_round_scalars_plain(state, prev, digest_out, sums, vinv, coeffs, r_out)
+        return
+    if state.device.type != "cuda":
+        raise ValueError(f"sumcheck_round_scalars: unsupported device {state.device}")
+    from . import _build
+
+    device = state.device
+    rc = _build.lib()["mlt_sumcheck_round_scalars"](
+        state.data_ptr(), sums.data_ptr(), vinv.data_ptr(), d, prev.data_ptr(), coeffs.data_ptr(),
+        r_out.data_ptr(), digest_out.data_ptr(),
+        device.index if device.index is not None else torch.cuda.current_device(),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel sumcheck_round_scalars failed to launch (cudaError {rc})")
+    _LAUNCHES["sumcheck_round_scalars"] += 1

@@ -19,11 +19,13 @@ K = 45*2^40 - 1, so a value  lo + 2^128 * hi  folds to  lo + K * hi.
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import List, Optional
 
 import torch
 
-from .scalar import K_FOLD, P
+from . import limbs
+from .scalar import K_FOLD, Fp, P
 
 _M32 = 0xFFFFFFFF
 _M16 = 0xFFFF
@@ -267,3 +269,59 @@ def reduce_limb_sums(s: torch.Tensor) -> torch.Tensor:
 def sum_mod(a: torch.Tensor, dim: int) -> torch.Tensor:
     """Sum a canonical field tensor over one VALUE axis, mod p."""
     return reduce_limb_sums(sum_limbs(a, dim))
+
+
+# ---------------------------------------------------------------------------
+# operator overloading for constraint expressions
+# ---------------------------------------------------------------------------
+
+
+class FA:
+    """Operator-overloading wrapper over a field tensor, so that one
+    constraint ``Expr`` runs unchanged over tensors in the prover and over
+    host ``Fp`` scalars in the verifier (reference Expr = fn(&[F], &[F]) -> F,
+    src/constraint_system/constraints.rs:3-10).  ``+``, ``-``, ``*`` and
+    unary ``-`` go through the add, sub and mul kernels; a host ``Fp`` or
+    ``int`` operand is packed once into a (4,) tensor that the kernels read
+    broadcast (never a full-size constant)."""
+
+    __slots__ = ("a",)
+
+    def __init__(self, a: torch.Tensor):
+        self.a = a
+
+    def __add__(self, o):
+        return FA(add(self.a, _coerce(o, self.a)))
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        return FA(sub(self.a, _coerce(o, self.a)))
+
+    def __rsub__(self, o):
+        return FA(sub(_coerce(o, self.a), self.a))
+
+    def __mul__(self, o):
+        return FA(mul(self.a, _coerce(o, self.a)))
+
+    __rmul__ = __mul__
+
+    def __neg__(self):
+        return FA(neg(self.a))
+
+
+@lru_cache(maxsize=256)
+def packed_scalar(v: int, device: torch.device) -> torch.Tensor:
+    """The (4,) limb tensor of the canonical value ``v`` on ``device``, made
+    once (through pinned memory: the copy does not make the host wait)."""
+    return limbs.pack_int(v, device=device)
+
+
+def _coerce(o, like: torch.Tensor) -> torch.Tensor:
+    if isinstance(o, FA):
+        return o.a
+    if isinstance(o, (int, Fp)):
+        # Fp semantics, so that the prover reads a constant as the verifier's
+        # host arithmetic does (a negative int wraps mod 2^128 first, Q4)
+        return packed_scalar(Fp(o).v, like.device)
+    raise TypeError(f"cannot combine a field tensor with {type(o).__name__}")

@@ -151,10 +151,12 @@ def delta_table(points, device) -> torch.Tensor:
 
 
 def evaluate_evals(evals: torch.Tensor, points) -> torch.Tensor:
-    """Evaluate an MLE in evaluation form at an arbitrary point: a (4,)
-    field tensor (semantics of reference src/polynomials.rs:165-188)."""
+    """Evaluate an MLE in evaluation form at an arbitrary point (semantics of
+    reference src/polynomials.rs:165-188).  ``evals``: (2^n, 4), or a batch
+    (..., 2^n, 4) of MLEs evaluated in one pass; reduces the last value axis,
+    so (w, 2^n, 4) gives (w, 4)."""
     d = delta_table(points, evals.device)
-    return ops.sum_mod(ops.mul(d, evals), dim=0)
+    return ops.sum_mod(ops.mul(d, evals), dim=-1)
 
 
 def evaluate_evals_host(evals: torch.Tensor, points) -> Fp:
@@ -174,4 +176,14 @@ def eq_scalar(a, b) -> Fp:
     for x, y in zip(a, b):
         x, y = Fp(x), Fp(y)
         acc = acc * (x * y + (ONE - x) * (ONE - y))
+    return acc
+
+
+def mask_scalar(index: int, n_vars: int, points) -> Fp:
+    """eq(points, bits(index)), big-endian (reference Mask::evaluate): the
+    weight of constraint ``index`` in the composition."""
+    acc = ONE
+    for i in range(n_vars):
+        pt = Fp(points[n_vars - 1 - i])
+        acc = acc * (pt if (index >> i) & 1 else ONE - pt)
     return acc

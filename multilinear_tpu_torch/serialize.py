@@ -8,8 +8,9 @@ sequences, raw fixed-size byte blobs for digests and field elements,
 one byte per Direction - so proof sizes are directly comparable, and the
 bytes equal the JAX package's for the same proof.
 
-This slice carries the PCS proof; the standalone FRI, batched and
-constraint-system proof codecs are later slices.
+Codecs: the standalone FRI proof, the PCS proof, the batched FRI and
+batched PCS proofs, and the constraint-system SNARK proof (a tag byte for
+its PCS type, then the inner proof behind a length prefix).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from .fri import FriProof, QueryProof
 from .merkle import MerklePath
 from .pcs import PCSProof
 from .sumcheck import SumcheckPoly
+from .system import SnarkProof
 
 
 class _Writer:
@@ -61,14 +63,10 @@ class _Reader:
         self.off = 0
 
     def u64(self) -> int:
-        (v,) = struct.unpack_from("<Q", self.buf, self.off)
-        self.off += 8
-        return v
+        return struct.unpack("<Q", self.raw(8))[0]
 
     def u8(self) -> int:
-        v = self.buf[self.off]
-        self.off += 1
-        return v
+        return self.raw(1)[0]
 
     def raw(self, n: int) -> bytes:
         b = self.buf[self.off : self.off + n]
@@ -251,3 +249,46 @@ def batched_pcs_proof_from_bytes(buf: bytes) -> BatchedPCSProof:
     outputs = r.felts()
     r.expect_end()
     return BatchedPCSProof(fri, pols, BatchedPCSClaim(inputs, outputs))
+
+
+# -- SNARK (constraint-system proof) -------------------------------------------
+#
+# The reference never serializes its SNARK flow (its serde round-trip stops
+# at FriProof, src/fri/mod.rs:389-397); the JAX package's codec completes the
+# set, and this one writes the same bytes.  A tag byte tells the width-1
+# plain-PCS flow (0) from the multi-column batched-PCS one (1).
+
+
+def snark_proof_to_bytes(proof: SnarkProof) -> bytes:
+    w = _Writer()
+    _write_pols(w, proof.sumcheck_polynomials)
+    w.felts(proof.outputs)
+    w.felt(proof.sum_value)
+    if isinstance(proof.pcs, PCSProof):
+        w.u8(0)
+        inner = pcs_proof_to_bytes(proof.pcs)
+    elif isinstance(proof.pcs, BatchedPCSProof):
+        w.u8(1)
+        inner = batched_pcs_proof_to_bytes(proof.pcs)
+    else:
+        raise TypeError(f"unknown PCS proof type {type(proof.pcs)!r}")
+    w.u64(len(inner))
+    w.raw(inner)
+    return w.done()
+
+
+def snark_proof_from_bytes(buf: bytes) -> SnarkProof:
+    r = _Reader(buf)
+    pols = _read_pols(r)
+    outputs = r.felts()
+    sum_value = r.felt()
+    tag = r.u8()
+    inner = r.raw(r.u64())
+    if tag == 0:
+        pcs = pcs_proof_from_bytes(inner)
+    elif tag == 1:
+        pcs = batched_pcs_proof_from_bytes(inner)
+    else:
+        raise ValueError(f"unknown SNARK PCS tag {tag}")
+    r.expect_end()
+    return SnarkProof(pols, outputs, pcs, sum_value)

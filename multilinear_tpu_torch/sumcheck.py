@@ -1,33 +1,68 @@
-"""The sumcheck engine, PCS part: device partial sums and table fold.
+"""The sumcheck engine: device partial sums, the table fold, and the
+standalone round loop with its Fiat-Shamir on the device.
 
 Protocol semantics match the reference engine
 (src/constraint_system/sumcheck.rs): same round-polynomial wire format
 (constant coefficient stripped, quirk Q7), same transcript schedule (absorb
-nonzero coeffs, then draw the challenge - on the device, in
-``device_transcript.round_scalars``), same table fold
+the nonzero coefficients, then draw the challenge), same table fold
 lo' = (1-r)*lo + r*hi pairing row i with i + h/2 (MSB fold, big-endian
 variable order).
 
-This slice carries what the PCS needs: the packed (MLE || delta) table, the
-degree-2 partial sums for the identity composition, and the fold.  The
-general compositions, the constraint-system tables and the standalone
-sumcheck loop of the JAX package are later slices.
+The prover state is one packed (w+1, h, 4) tensor: w trace columns (one MLE
+for the PCS) and the delta (eq-weight) table in the LAST row, so one
+multiply folds everything.  A round evaluates the composition at the
+linear extensions X = 1..d of the table halves, weights it by the extended
+delta row and sums the limbs unreduced; the round's Fiat-Shamir kernel
+reduces the sums:
+
+* the PCS (``pcs.DeviceRounds``) calls :meth:`SumcheckTables.partial_sums`
+  with the identity composition and ``device_transcript.round_scalars``;
+* the standalone sumcheck of the constraint system
+  (:meth:`SumcheckTables.compute_all_rounds`, :class:`DeviceSumcheckRounds`)
+  evaluates any composition and calls
+  ``device_transcript.sumcheck_round_scalars``, which interpolates through
+  V^-1.  Its rounds copy nothing to the host; one copy after the last round
+  brings the coefficients, the randoms, the folded columns (each column's
+  MLE at the randoms) and the device's digest back, and the host replays the
+  absorbs and challenges and checks them.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Sequence
+from functools import lru_cache
+from typing import Callable, List, Optional, Sequence
 
+import numpy as np
 import torch
 
-from .field import ops
-from .field.scalar import Fp, TWO_INV, ZERO
+from . import device_transcript as dtr
+from . import stats
+from .field import limbs, ops
+from .field.scalar import Fp, ONE, TWO_INV, ZERO
 from .mle import combine_subtables, delta_subtables
 from .poly import Polynomial
+from .sha256 import digest_to_bytes
 from .transcript import Transcript
 
 PCS_DEGREE = 2  # identity composition times the delta weights
+
+# A composition maps the per-column ``ops.FA`` values of the extended table
+# to one ``ops.FA`` (or a host scalar).  Two calling conventions, as in the
+# JAX package: composition(cols) when there are no aux scalars (e.g.
+# identity_composition), composition(cols, aux) otherwise - the randoms and
+# constraint masks arrive as FA values of (4,) device tensors packed once
+# per proof, not as constants baked into the composition.
+Composition = Callable[..., ops.FA]
+
+
+def _call_comp(composition, cols, aux):
+    return composition(cols) if aux is None else composition(cols, aux)
+
+
+def identity_composition(cols: Sequence[ops.FA]) -> ops.FA:
+    """The PCS composition: x -> x[0] (reference multilinear_pcs.rs:56)."""
+    return cols[0]
 
 
 @dataclass
@@ -53,52 +88,91 @@ class SumcheckPoly:
 
 
 def _pack_tables_kernel(cols: torch.Tensor, subs) -> torch.Tensor:
-    """The packed (columns || delta) table: ``cols`` (h, 4) one MLE, ``subs``
-    the delta sub-tables (mle.delta_subtables).  Returns (2, h, 4) with the
-    delta weights in the LAST row, so one multiply folds everything."""
-    data = torch.empty((2,) + tuple(cols.shape), dtype=cols.dtype, device=cols.device)
-    data[0].copy_(cols)
-    combine_subtables(subs, out=data[1])
+    """The packed (columns || delta) table: ``cols`` (h, 4) one MLE or
+    (w, h, 4) trace columns, ``subs`` the delta sub-tables
+    (mle.delta_subtables).  Returns (w+1, h, 4) with the delta weights in the
+    LAST row."""
+    if cols.dim() == 2:
+        cols = cols.unsqueeze(0)
+    w = cols.shape[0]
+    data = torch.empty((w + 1,) + tuple(cols.shape[1:]), dtype=cols.dtype, device=cols.device)
+    data[:w].copy_(cols)
+    combine_subtables(subs, out=data[w])
     return data
 
 
-def _extensions(data: torch.Tensor, total_degree: int) -> List[torch.Tensor]:
+def _extensions(data: torch.Tensor, total_degree: int):
     """Linear extensions of the packed table (w+1, h, 4) at X = 1..d, each
-    (w+1, h/2, 4).  Incremental form ext(X+1) = ext(X) + (hi - lo): no
+    (w+1, h/2, 4), yielded one at a time so that a caller holds one point's
+    temporaries at once.  Incremental form ext(X+1) = ext(X) + (hi - lo): no
     field multiplies."""
     off = data.shape[1] // 2
     lo, hi = data[:, :off], data[:, off:]
-    exts = [hi]
+    yield hi
     if total_degree > 1:
         diff = ops.sub(hi, lo)
         cur = hi
         for _ in range(2, total_degree + 1):
             cur = ops.add(cur, diff)
-            exts.append(cur)
-    return exts
+            yield cur
 
 
-def _partial_sums_kernel(data: torch.Tensor, total_degree: int) -> torch.Tensor:
-    """Round polynomial evaluations s(X), X = 1..d, for the identity
-    composition, as UNREDUCED int64 limb sums (d, 4): s(X) = sum_i
-    delta_X[i] * mle_X[i] over the extended rows.  The round's Fiat-Shamir
-    kernel reduces them (``device_transcript.round_scalars``): the wide
-    reduction of two elements is ~150 tiny launches in tensor code."""
-    sums = [ops.sum_limbs(ops.mul(e[-1], e[0]), dim=0) for e in _extensions(data, total_degree)]
+def _partial_sums_kernel(data: torch.Tensor, total_degree: int, composition: Composition, aux) -> torch.Tensor:
+    """Round polynomial evaluations s(X), X = 1..d, as UNREDUCED int64 limb
+    sums (d, 4): s(X) = sum_i delta_X[i] * composition(cols_X)[i] over the
+    extended rows; the round's Fiat-Shamir kernel reduces them.  The
+    identity composition (the PCS) multiplies the two rows directly; a
+    composition that collapses to a host scalar (a constant Expr) is packed
+    once and read broadcast."""
+    w = data.shape[0] - 1
+    if data.shape[1] // 2 >= 1 << 31:
+        raise ValueError("a round's unreduced limb sums stay exact for fewer than 2^31 rows")
+    sums = []
+    for e in _extensions(data, total_degree):
+        if composition is identity_composition:
+            comp = e[0]
+        else:
+            comp = _call_comp(composition, [ops.FA(e[j]) for j in range(w)], aux)
+            comp = comp.a if isinstance(comp, ops.FA) else ops.packed_scalar(Fp(comp).v, data.device)
+        sums.append(ops.sum_limbs(ops.mul(e[w], comp), dim=0))
+        del e, comp
     return torch.stack(sums)
 
 
 def _fold_kernel(data: torch.Tensor, r_limbs: torch.Tensor) -> torch.Tensor:
     """Fold the packed table with challenge r: lo + r*(hi - lo); ONE multiply
-    covers the MLE and the delta row."""
+    covers every column and the delta row."""
     off = data.shape[1] // 2
     lo, hi = data[:, :off], data[:, off:]
     return ops.add(lo, ops.mul(ops.sub(hi, lo), r_limbs))
 
 
+@lru_cache(maxsize=16)
+def vandermonde_inv(n: int, device: torch.device) -> torch.Tensor:
+    """V^-1 over the points 0..n-1 as an (n, n, 4) field tensor on
+    ``device``, built on the host once per degree and kept on the device:
+    coeffs = V^-1 @ evals is the interpolating polynomial (unique, so equal
+    to PolynomialEvals.interpolate)."""
+    V = [[Fp(i) ** j for j in range(n)] for i in range(n)]
+    inv = [[ONE if i == j else ZERO for j in range(n)] for i in range(n)]
+    for col in range(n):
+        piv = next(r for r in range(col, n) if V[r][col] != ZERO)
+        V[col], V[piv] = V[piv], V[col]
+        inv[col], inv[piv] = inv[piv], inv[col]
+        s = V[col][col].inv()
+        V[col] = [x * s for x in V[col]]
+        inv[col] = [x * s for x in inv[col]]
+        for r in range(n):
+            if r != col and V[r][col] != ZERO:
+                f = V[r][col]
+                V[r] = [a - f * b for a, b in zip(V[r], V[col])]
+                inv[r] = [a - f * b for a, b in zip(inv[r], inv[col])]
+    return limbs.pack_ints([x for row in inv for x in row], shape=(n, n), device=device)
+
+
 class SumcheckTables:
-    """Prover state of the PCS sumcheck: the MLE and the delta (eq-weight)
-    table packed as one (2, height, 4) device tensor."""
+    """Prover state of a sumcheck: the packed (w+1, height, 4) tensor of w
+    columns and the delta table (w = 1 for the PCS)."""
 
     def __init__(self, data: torch.Tensor, height: int, debug_checks: bool = False):
         self.data = data
@@ -117,10 +191,25 @@ class SumcheckTables:
         data = _pack_tables_kernel(evals, delta_subtables(inputs, evals.device))
         return SumcheckTables(data, height, debug_checks)
 
-    def partial_sums(self) -> torch.Tensor:
-        """(2, 4) int64 device tensor: the unreduced limb sums of s(1), s(2)
-        of this round's polynomial."""
-        return _partial_sums_kernel(self.data, PCS_DEGREE)
+    @staticmethod
+    def for_trace(row_challenges: Sequence[Fp], trace_columns: torch.Tensor,
+                  debug_checks: bool = False) -> "SumcheckTables":
+        """Tables for a constraint-system trace: ``trace_columns`` (w, h, 4),
+        delta[i] = eq(row_challenges, bits(i)) (reference build_tables,
+        sumcheck.rs:22-38)."""
+        if trace_columns.dim() != 3 or trace_columns.shape[-1] != 4:
+            raise ValueError(f"trace columns must be a (w, h, 4) limb tensor, got {tuple(trace_columns.shape)}")
+        height = trace_columns.shape[1]
+        if not row_challenges or 1 << len(row_challenges) != height:
+            raise ValueError("need one row challenge per variable of the trace, at least one")
+        data = _pack_tables_kernel(trace_columns, delta_subtables(row_challenges, trace_columns.device))
+        return SumcheckTables(data, height, debug_checks)
+
+    def partial_sums(self, composition: Composition = identity_composition, total_degree: int = PCS_DEGREE,
+                     aux=None) -> torch.Tensor:
+        """(d, 4) int64 device tensor: the unreduced limb sums of s(1)..s(d)
+        of this round's polynomial.  The defaults are the PCS's."""
+        return _partial_sums_kernel(self.data, total_degree, composition, aux)
 
     def fold(self, r: torch.Tensor) -> None:
         """Fold with the challenge r, a (4,) field element on the tables'
@@ -129,3 +218,133 @@ class SumcheckTables:
         self.height >>= 1
         if self.debug_checks and not ops.is_canonical(self.data):
             raise ValueError("non-canonical field element in folded sumcheck table")
+
+    def compute_all_rounds(self, composition: Composition, composition_degree: int, transcript: Transcript,
+                           sum_value: Fp, aux=None):
+        """Run all log2(height) rounds of the standalone sumcheck
+        (sumcheck.rs:147-172) on the tables' device; round degree =
+        composition degree + 1 (the delta factor is multilinear).  Returns
+        (pols, randoms); the transcript ends where the host schedule would
+        leave it."""
+        rounds = DeviceSumcheckRounds(transcript, self, composition, composition_degree + 1, sum_value, aux)
+        rounds.launch()
+        return rounds.replay()
+
+
+class DeviceSumcheckRounds:
+    """The standalone sumcheck's rounds on the tables' device, and what the
+    host has not replayed yet (the counterpart of ``pcs.DeviceRounds``).
+
+    The host transcript's state hops to the device once, here.  A round is
+    the partial sums, ONE ``sumcheck_round_scalars`` launch (reduce,
+    interpolate through V^-1, absorb, draw r into the round's slot of
+    ``randoms``, next sum) and the table fold, which reads r there: nothing
+    is copied to or from the host.  ``replay`` makes the one copy (the
+    rounds' coefficients and randoms, the device's digest, and after the last
+    round the folded columns); the host absorbs the same coefficients and
+    draws the challenges into its own transcript, and must reach the same
+    randoms and the same digest.  After the last round the tables hold one
+    row, each column's MLE at the randoms: ``outputs``.
+    """
+
+    def __init__(self, transcript: Transcript, tables: SumcheckTables, composition: Composition,
+                 total_degree: int, previous_sum: Fp, aux=None):
+        if not 1 <= total_degree <= dtr.MAX_SUMCHECK_DEGREE:
+            raise ValueError(f"total degree must be 1..{dtr.MAX_SUMCHECK_DEGREE}, got {total_degree}")
+        device = tables.data.device
+        self.transcript = transcript
+        self.tables = tables
+        self.composition = composition
+        self.total_degree = total_degree
+        self.n_rounds = tables.height.bit_length() - 1
+        # the copies to the device go through pinned memory and do not make
+        # the host wait
+        self.state = dtr.state_from_host(transcript, device)
+        self.prev = limbs.pack_int(Fp(previous_sum).v, device=device)
+        self.vinv = vandermonde_inv(total_degree + 1, device)
+        self.aux = None if aux is None else [ops.FA(a) for a in limbs.pack_ints(list(aux), device=device)]
+        self.coeffs = torch.empty((self.n_rounds, total_degree, 4), dtype=torch.int32, device=device)
+        self.randoms = torch.empty((self.n_rounds, 4), dtype=torch.int32, device=device)
+        self.digest = torch.empty(8, dtype=torch.int32, device=device)
+        self.k = 0  # rounds launched
+        self.replayed = 0  # rounds the host transcript has absorbed
+        self.outputs: Optional[List[Fp]] = None  # the columns at the randoms, after the last round
+
+    def launch(self, max_rounds: Optional[int] = None) -> int:
+        """Launch up to ``max_rounds`` rounds on the device; copies nothing.
+        Returns the number launched."""
+        end = self.n_rounds if max_rounds is None else min(self.n_rounds, self.k + max_rounds)
+        done = 0
+        while self.k < end:
+            sums = self.tables.partial_sums(self.composition, self.total_degree, self.aux)
+            dtr.sumcheck_round_scalars(self.state, self.prev, self.digest, sums, self.vinv, self.coeffs[self.k],
+                                       self.randoms[self.k])
+            self.tables.fold(self.randoms[self.k])
+            self.k += 1
+            done += 1
+        return done
+
+    def replay(self):
+        """ONE device->host copy of the coefficients and randoms of the
+        rounds not replayed yet and of the device's digest, and once the last
+        round is in, of the folded columns (``outputs``); the host transcript
+        then absorbs each round's coefficients and draws its challenge (Q1:
+        the absorb comes first), and must draw the randoms the device folded
+        with and reach the same digest.  Returns (pols, randoms) of those
+        rounds."""
+        if self.replayed == self.k:
+            return [], []
+        k0, n, d = self.replayed, self.k - self.replayed, self.total_degree
+        last = self.k == self.n_rounds
+        w = self.tables.data.shape[0] - 1
+        parts = [self.coeffs[k0 : self.k].reshape(-1), self.randoms[k0 : self.k].reshape(-1)]
+        if last:
+            parts.append(self.tables.data[:w, 0].reshape(-1))
+        host = stats.fetch(torch.cat(parts + [self.digest])).view(np.uint32)
+        coeffs = limbs.unpack_ints(host[: 4 * d * n].reshape(n, d, 4))
+        device_rs = limbs.unpack_ints(host[4 * d * n : 4 * (d + 1) * n].reshape(n, 4))
+        pols, randoms = [], []
+        for row in coeffs:
+            pol = SumcheckPoly([Fp(int(c)) for c in row])
+            pol.absorb_into(self.transcript)
+            pols.append(pol)
+            randoms.append(self.transcript.next_challenge())
+        if [r.v for r in randoms] != [int(r) for r in device_rs] or \
+                self.transcript.random() != digest_to_bytes(host[-8:]):
+            raise dtr.TranscriptMismatch("the host transcript's replay of the sumcheck rounds does not reach "
+                                         "the randoms and the digest the device computed")
+        if last:
+            end = 4 * (d + 1) * n
+            self.outputs = [Fp(int(v)) for v in limbs.unpack_ints(host[end : end + 4 * w].reshape(w, 4))]
+        self.replayed = self.k
+        return pols, randoms
+
+
+def replay_sumcheck(transcript: Transcript, pols: Sequence[SumcheckPoly], sum_value: Fp, degree: int = None):
+    """Verifier-side telescoping replay of the standalone protocol: absorb
+    each round polynomial and draw the challenges exactly as the prover did
+    (reference verify_sumcheck_debug / verify_with_evaluations,
+    sumcheck.rs:55-124).  Returns (randoms, final_value), where final_value =
+    p_last(r_last) must equal delta(rs) * composition(trace(rs)).
+
+    ``degree``: the round polynomials' total degree (composition degree + 1);
+    when given, a proof whose coefficient vectors have another length is
+    rejected before the replay (the wire format sends coeffs[1..], so the
+    expected length is exactly ``degree``)."""
+    if not pols:
+        raise ValueError("at least one round polynomial is expected")
+    if degree is not None and any(len(p.nonzero_coeffs) != degree for p in pols):
+        raise ValueError("sumcheck round polynomial exceeds degree bound")
+    rs: List[Fp] = []
+    it = iter(pols)
+    first = next(it)
+    first.absorb_into(transcript)
+    pol = first.to_polynomial(sum_value)
+    for sc_pol in it:
+        r = transcript.next_challenge()
+        sc_pol.absorb_into(transcript)
+        pol = sc_pol.to_polynomial(pol.evaluate(r))
+        rs.append(r)
+    r = transcript.next_challenge()
+    rs.append(r)
+    return rs, pol.evaluate(r)

@@ -1,0 +1,404 @@
+"""AIR-style constraint system and its SNARK: Expr, ConstraintSet, Trace,
+System, SnarkProof, SnarkProverSession.
+
+Capability parity with reference src/constraint_system/{constraints,trace,
+system}.rs and with the JAX package's ``system.py``.  A constraint is a plain
+Python callable over operator-overloading values, so the SAME expression
+runs (a) over field tensors (``ops.FA``) inside the sumcheck's partial sums
+and (b) over host ``Fp`` scalars in the verifier - the reference's
+``Expr = fn(&[F], &[F]) -> F`` (constraints.rs:3-10).
+
+A SNARK proof is the trace sumcheck over the masked constraints, then a PCS
+opening of the trace columns at the sumcheck point: the plain PCS for one
+column (the reference snark_test flow, src/fri/multilinear_pcs.rs:279-316),
+the batched PCS for several (an extension the reference describes but does
+not wire up).  The prover's tensors live on ``ProverConfig.device`` (the
+card unless the caller asks for the CPU); its randomness comes only from the
+transcript.
+
+Behavioral quirks preserved for transcript parity:
+
+* Q2 - all ChallengeSet challenges are one identical element: the reference
+  builds each vector with ``vec![transcript.next_challenge(); n]`` and
+  absorbs nothing in between (system.rs:131-146), and next_challenge does
+  not advance the sponge (Q1).
+* Q3 - the trace ``Commitment`` is a stub that never binds the trace
+  (trace.rs:40-48).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Callable, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from . import stats
+from .batched_pcs import BatchedPCSClaim, BatchedPCSProof, BatchedPCSProverSession
+from .config import ProverConfig
+from .field import limbs
+from .field.scalar import Fp, ZERO
+from .mle import eq_scalar, evaluate_evals, mask_scalar
+from .pcs import PCSProof, PCSProverSession
+from .sumcheck import DeviceSumcheckRounds, SumcheckPoly, SumcheckTables, replay_sumcheck
+from .transcript import Transcript
+from .utils import PhaseTimer
+
+# An Expr takes (values, randoms) and returns a value; polymorphic over
+# ops.FA tensors and host Fp scalars.
+Expr = Callable[[Sequence, Sequence], object]
+
+
+class SnarkError(ValueError):
+    """The sumcheck's final value does not match delta * composition at the
+    claimed column evaluations, or the PCS proof opens another claim."""
+
+
+@dataclass
+class ConstraintSet:
+    """Constraints of the form ``expr = 0`` plus their max degree.
+
+    Reference: ConstraintSet (src/constraint_system/constraints.rs:12-34).
+    """
+
+    constraints: List[Expr]
+    degree: int
+
+    def composition_fn(self):
+        """Two-argument composition sum_i mask_i * C_i(cols, randoms): the
+        randoms and masks arrive in ``aux`` (randoms first, then one mask per
+        constraint) instead of being closed over, so the same callable
+        serves every proof with this constraint set.  Cached on the
+        instance."""
+        if getattr(self, "_comp_fn", None) is None:
+            cs = list(self.constraints)
+            n = len(cs)
+
+            def comp(cols, aux):
+                randoms = aux[: len(aux) - n]
+                masks = aux[len(aux) - n :]
+                acc = None
+                for expr, m in zip(cs, masks):
+                    term = expr(cols, randoms) * m
+                    acc = term if acc is None else acc + term
+                return acc if acc is not None else ZERO
+
+            object.__setattr__(self, "_comp_fn", comp)
+        return self._comp_fn
+
+
+def _is_pow2(n: int) -> bool:
+    return n > 0 and n & (n - 1) == 0
+
+
+class Trace:
+    """Execution trace of ``width`` columns and a power-of-two height, held
+    as a (width, height, 4) field tensor (column c at [c]).
+
+    Reference: Trace (src/constraint_system/trace.rs:3-38).  The row-major
+    constructor takes host ints; large traces are built with
+    :meth:`from_columns`, which never makes a host int per element.  The
+    columns live on ``device``, by default ``ProverConfig().device`` (the
+    card) as for every entry point; pass ``"cpu"`` to keep them on the host.
+    """
+
+    def __init__(self, matrix: Sequence, width: int, device=None):
+        vals = [Fp(v).v for v in matrix]
+        if width < 1 or len(vals) % width:
+            raise ValueError("the matrix must hold a whole number of rows of the given width")
+        height = len(vals) // width
+        if not _is_pow2(height):
+            raise ValueError("height must be a power of two")
+        cols = np.array(vals, dtype=object).reshape(height, width).T.reshape(-1)
+        device = ProverConfig().device if device is None else device
+        self._cols = limbs.pack_ints(cols, shape=(width, height), device=device)
+        self.width, self.height = width, height
+
+    @staticmethod
+    def from_columns(columns, device=None) -> "Trace":
+        """Tensor- or numpy-backed construction (no per-element host ints).
+
+        ``columns``: a (w, h, 4) limb tensor of canonical residues, which
+        stays on its device unless ``device`` is given, or a sequence of w
+        1-D numpy uint64 arrays, packed on the host and moved to ``device``,
+        by default ``ProverConfig().device`` (the card)."""
+        if not isinstance(columns, torch.Tensor):
+            if any(not isinstance(c, np.ndarray) or c.ndim != 1 for c in columns):
+                raise ValueError("columns must be a (w, h, 4) tensor or 1-D numpy uint64 arrays")
+            columns = torch.stack([limbs.pack_ints(np.asarray(c, dtype=np.uint64)) for c in columns])
+            device = ProverConfig().device if device is None else device
+        if columns.dim() != 3 or columns.shape[-1] != 4 or columns.dtype != torch.int32:
+            raise ValueError(f"trace columns must be a (w, h, 4) int32 tensor, got {columns.dtype} "
+                             f"{tuple(columns.shape)}")
+        if not _is_pow2(columns.shape[1]) or columns.shape[0] < 1:
+            raise ValueError("height must be a power of two and width at least 1")
+        t = Trace.__new__(Trace)
+        t._cols = (columns if device is None else columns.to(device)).contiguous()
+        t.width, t.height = columns.shape[0], columns.shape[1]
+        return t
+
+    def to(self, device) -> "Trace":
+        """This trace with its columns on ``device`` (itself if they are)."""
+        device = torch.device(device)
+        if self._cols.device.type == device.type and device.index in (None, self._cols.device.index):
+            return self
+        return Trace.from_columns(self._cols, device)
+
+    def get(self, i: int, j: int) -> Fp:
+        """Row i of column j."""
+        return Fp(int(limbs.unpack_ints(stats.fetch(self._cols[j, i]))[()]))
+
+    def columns_device(self) -> torch.Tensor:
+        """(w, h, 4) limb tensor, column c at [c]."""
+        return self._cols
+
+    def evaluate(self, points: Sequence[Fp]) -> List[Fp]:
+        """MLE of every column at ``points`` (reference evaluation.rs:31-48):
+        one delta table, one batched product and sum on the columns' device,
+        one copy of the w results to the host."""
+        out = evaluate_evals(self._cols, points)  # (w, 4)
+        return [Fp(int(v)) for v in limbs.unpack_ints(stats.fetch(out))]
+
+
+def trace_from_jax_columns(columns, device=None) -> Trace:
+    """A trace of this package from the JAX package's ``Trace.columns_device()``
+    as a numpy (8, w, h) uint32 array of 16-bit limbs, on ``device`` (by
+    default ``ProverConfig().device``, the card): both packages then prove the
+    same thing."""
+    columns = np.asarray(columns, dtype=np.uint32)
+    if columns.ndim != 3 or columns.shape[0] != 8:
+        raise ValueError(f"expected an (8, w, h) limb array, got {columns.shape}")
+    device = ProverConfig().device if device is None else device
+    return Trace.from_columns(limbs.from_jax_limbs(columns, device))
+
+
+class Commitment:
+    """Stub trace commitment, reproducing reference quirk Q3
+    (src/constraint_system/trace.rs:40-48): it never binds the trace."""
+
+    def __init__(self, trace: Optional[Trace] = None):
+        pass
+
+
+@dataclass
+class WitnessLayout:
+    """Witness shape (reference system.rs:17-30).  ``pre_random_columns``
+    and ``sum_columns`` are declared but unused, as in the reference."""
+
+    columns: int
+    randoms: int = 0
+    pre_random_columns: int = 0
+    sum_columns: List[int] = field(default_factory=list)
+
+
+class ChallengeSet:
+    """Row, trace and constraint challenges drawn at construction.
+
+    Quirk Q2: each vector is n copies of ONE next_challenge() result and
+    nothing is absorbed in between, so every challenge in the set is the same
+    element (reference system.rs:131-146)."""
+
+    def __init__(self, transcript: Transcript, num_randoms: int, log_num_constraints: int, log_num_rows: int):
+        self.row = [transcript.next_challenge()] * log_num_rows
+        self.trace = [transcript.next_challenge()] * num_randoms
+        self.constraint = [transcript.next_challenge()] * log_num_constraints
+
+
+class System:
+    """Prover/verifier context tying constraints, challenges and the trace.
+
+    Reference: System (src/constraint_system/system.rs:8-128).
+    """
+
+    def __init__(self, transcript: Transcript, constraints: ConstraintSet, layout: WitnessLayout,
+                 commitment: Commitment, log_num_rows: int, trace: Optional[Trace],
+                 config: Optional[ProverConfig] = None):
+        n_constraints = len(constraints.constraints)
+        log_num_constraints = max(n_constraints - 1, 0).bit_length()
+        self.constraints = constraints
+        self.layout = layout
+        self.commitment = commitment
+        self.config = config or ProverConfig()
+        self.trace = None if trace is None else trace.to(self.config.device)
+        self.challenges = ChallengeSet(transcript, layout.randoms, log_num_constraints, log_num_rows)
+        cc = self.challenges.constraint
+        self.constraint_mask = [mask_scalar(i, len(cc), cc) for i in range(n_constraints)]
+
+    @staticmethod
+    def prover(transcript: Transcript, constraints: ConstraintSet, layout: WitnessLayout, trace: Trace,
+               config: Optional[ProverConfig] = None) -> "System":
+        """A prover on ``config.device`` (default: the card); the trace's
+        columns are moved there."""
+        log_num_rows = trace.height.bit_length() - 1
+        return System(transcript, constraints, layout, Commitment(trace), log_num_rows, trace, config)
+
+    @staticmethod
+    def verifier(transcript: Transcript, constraints: ConstraintSet, layout: WitnessLayout,
+                 commitment: Commitment, log_num_rows: int) -> "System":
+        """A verifier: host only."""
+        return System(transcript, constraints, layout, commitment, log_num_rows, None)
+
+    # -- composition / delta glue (reference evaluation.rs:4-29) -------------
+    @property
+    def aux(self) -> list:
+        """The composition's aux scalars: the randoms, then one mask per
+        constraint."""
+        return list(self.challenges.trace) + list(self.constraint_mask)
+
+    def evaluate_composition(self, values: Sequence) -> object:
+        """sum_i mask_i * C_i(values, randoms); polymorphic (FA or Fp)."""
+        if len(values) != self.layout.columns:
+            raise SnarkError(f"expected {self.layout.columns} column values, got {len(values)}")
+        return self.constraints.composition_fn()(list(values), self.aux)
+
+    def evaluate_delta(self, inputs: Sequence[Fp]) -> Fp:
+        return eq_scalar(self.challenges.row, inputs)
+
+    # -- prover flow ----------------------------------------------------------
+    def build_tables(self) -> SumcheckTables:
+        if self.trace is None:
+            raise ValueError("a verifier has no trace")
+        return SumcheckTables.for_trace(self.challenges.row, self.trace.columns_device(),
+                                        self.config.debug_checks)
+
+    def compute_sumcheck_polynomials(self, transcript: Transcript, tables: SumcheckTables, sum_value: Fp):
+        """The standalone sumcheck over the masked constraints: (pols, randoms)."""
+        return tables.compute_all_rounds(self.constraints.composition_fn(), self.constraints.degree, transcript,
+                                         sum_value, aux=self.aux)
+
+    # -- verifier flow ---------------------------------------------------------
+    def verify_sumcheck_debug(self, transcript: Transcript, pols, sum_value: Fp) -> None:
+        """Prover-side debug check: re-evaluates the trace's MLEs
+        (reference sumcheck.rs:55-89)."""
+        rs, final = replay_sumcheck(transcript, pols, sum_value)
+        output = self.trace.evaluate(rs)
+        if self.evaluate_delta(rs) * self.evaluate_composition(output) != final:
+            raise SnarkError("Does not match polynomial evaluation")
+
+    def verify_with_evaluations(self, transcript: Transcript, pols, sum_value: Fp, output: Sequence[Fp]):
+        """Verifier-side check against claimed column evaluations (reference
+        sumcheck.rs:91-124); the round polynomials must have total degree
+        composition degree + 1.  Returns the sumcheck point."""
+        rs, final = replay_sumcheck(transcript, pols, sum_value, degree=self.constraints.degree + 1)
+        if self.evaluate_delta(rs) * self.evaluate_composition(list(output)) != final:
+            raise SnarkError("Does not match polynomial evaluation")
+        return rs
+
+    # -- end-to-end SNARK (sumcheck + PCS) -------------------------------------
+    def prove_snark(self, transcript: Transcript, sum_value: Fp = None) -> "SnarkProof":
+        """Sumcheck over the composed constraints, then a PCS opening of the
+        trace columns at the sumcheck point: ``PCSProof`` for width 1,
+        ``BatchedPCSProof`` for more columns."""
+        session = SnarkProverSession(transcript, self.constraints, self.layout, self.trace, sum_value,
+                                     self.config, system=self)
+        session.run_sumcheck_rounds()
+        return session.finish()
+
+    def verify_snark(self, transcript: Transcript, proof: "SnarkProof") -> None:
+        """Verify a :class:`SnarkProof`: the sumcheck replay against the
+        claimed outputs, then the PCS proof, which must open exactly those
+        outputs at the sumcheck point."""
+        rs = self.verify_with_evaluations(transcript, proof.sumcheck_polynomials, proof.sum_value,
+                                          proof.outputs)
+        pcs = proof.pcs
+        if isinstance(pcs, PCSProof):
+            claim = (list(pcs.inputs), [pcs.output])
+        elif isinstance(pcs, BatchedPCSProof):
+            claim = (list(pcs.claim.inputs), list(pcs.claim.outputs))
+        else:
+            raise SnarkError(f"unknown PCS proof type {type(pcs).__name__}")
+        if claim != (list(rs), list(proof.outputs)):
+            raise SnarkError("the PCS proof opens another point or other outputs than the sumcheck's")
+        pcs.verify(transcript)
+
+
+class SnarkProof:
+    """Sumcheck round polynomials + claimed column evaluations + PCS proof."""
+
+    def __init__(self, sumcheck_polynomials: List[SumcheckPoly], outputs: List[Fp], pcs, sum_value: Fp):
+        self.sumcheck_polynomials = sumcheck_polynomials
+        self.outputs = outputs
+        self.pcs = pcs
+        self.sum_value = sum_value
+
+
+class SnarkProverSession:
+    """Stage-by-stage SNARK prover: the trace sumcheck (some or all rounds at
+    a time), then the PCS opening (some or all rounds at a time), then
+    ``finish``.  ``System.prove_snark`` is the one-shot wrapper.  Saving a
+    session to disk and resuming it is a later slice.
+
+    Phases (``utils.PhaseTimer``): ``snark_tables``, ``sumcheck_rounds``,
+    then the PCS session's own (encode, commit_l0 or commit_batch, tables,
+    rounds, queries).  The outputs - each column's MLE at the sumcheck point -
+    are what the last round's fold leaves in the tables; they come to the host
+    in the copy that ends the rounds."""
+
+    def __init__(self, transcript: Transcript, constraints: ConstraintSet, layout: WitnessLayout, trace: Trace,
+                 sum_value: Fp = None, config: Optional[ProverConfig] = None, system: Optional[System] = None):
+        self.system = system or System.prover(transcript, constraints, layout, trace, config)
+        self.config = self.system.config
+        self.transcript = transcript
+        self.trace = self.system.trace
+        self.sum_value = Fp(0) if sum_value is None else Fp(sum_value)
+        pt = PhaseTimer(self.config.device)
+        self.tables = self.system.build_tables()
+        comp = self.system.constraints.composition_fn()
+        self.rounds = DeviceSumcheckRounds(transcript, self.tables, comp, self.system.constraints.degree + 1,
+                                           self.sum_value, self.system.aux)
+        pt.mark("snark_tables")
+        self.n_rounds = self.rounds.n_rounds
+        self.pols: List[SumcheckPoly] = []
+        self.randoms: List[Fp] = []
+        self.outputs: Optional[List[Fp]] = None
+        self.pcs_session = None
+
+    # -- phase 1: trace sumcheck ------------------------------------------------
+    def launch_sumcheck_rounds(self, max_rounds: Optional[int] = None) -> int:
+        """Launch up to ``max_rounds`` trace-sumcheck rounds on the device and
+        copy nothing back; returns rounds launched."""
+        return self.rounds.launch(max_rounds)
+
+    def run_sumcheck_rounds(self, max_rounds: Optional[int] = None) -> int:
+        """Run up to ``max_rounds`` trace-sumcheck rounds and bring the host
+        transcript up to date (one copy); returns rounds done."""
+        pt = PhaseTimer(self.config.device)
+        done = self.rounds.launch(max_rounds)
+        self._replay()
+        pt.mark("sumcheck_rounds")
+        return done
+
+    def _replay(self) -> None:
+        pols, randoms = self.rounds.replay()
+        self.pols += pols
+        self.randoms += randoms
+
+    # -- phase 2: PCS opening ---------------------------------------------------
+    def start_pcs(self) -> None:
+        """Open the PCS at the sumcheck point, claiming the outputs the
+        sumcheck's last fold left."""
+        if self.pcs_session is not None:
+            raise RuntimeError("the PCS phase has started already")
+        self._replay()  # rounds launched but not yet replayed
+        if len(self.randoms) != self.n_rounds:
+            raise RuntimeError("sumcheck phase not finished")
+        self.outputs = self.rounds.outputs
+        cols = self.trace.columns_device()
+        if self.trace.width == 1:
+            self.pcs_session = PCSProverSession(self.randoms, self.outputs[0], cols[0], self.transcript, self.config)
+        else:
+            claim = BatchedPCSClaim(inputs=list(self.randoms), outputs=list(self.outputs))
+            self.pcs_session = BatchedPCSProverSession(claim, cols, self.transcript, self.config)
+
+    def run_pcs_rounds(self, max_rounds: Optional[int] = None) -> int:
+        if self.pcs_session is None:
+            self.start_pcs()
+        return self.pcs_session.run_rounds(max_rounds)
+
+    def finish(self) -> SnarkProof:
+        if self.pcs_session is None:
+            self.start_pcs()
+        self.pcs_session.run_rounds()
+        pcs = self.pcs_session.finish()
+        return SnarkProof(self.pols, list(self.outputs), pcs, self.sum_value)

@@ -48,6 +48,8 @@ def test_import_leaves_no_jax_in_sys_modules(probe):
     assert "multilinear_tpu_torch.batched_pcs" in probe["NAMES"]
     assert "multilinear_tpu_torch.batched_fri" in probe["NAMES"]
     assert "multilinear_tpu_torch.device_transcript" in probe["NAMES"]
+    assert "multilinear_tpu_torch.system" in probe["NAMES"]
+    assert "multilinear_tpu_torch.sumcheck" in probe["NAMES"]
     assert probe["BAD"] == "[]"
 
 
@@ -81,7 +83,7 @@ def test_every_kernel_source_and_binding_is_present():
         "prev_sha256_words", "prev_zm", "prev_kron", "opcount",
     } == set(_build.SOURCES)
     for symbol in ("mlt_sha256_messages", "mlt_sha256_leaves", "mlt_merkle_levels", "mlt_zm_tiles",
-                   "mlt_kron_tiles", "mlt_round_scalars"):
+                   "mlt_kron_tiles", "mlt_round_scalars", "mlt_sumcheck_round_scalars"):
         assert symbol in _build.KERNELS, symbol
 
 
