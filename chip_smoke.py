@@ -39,6 +39,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -560,12 +561,20 @@ def sumcheck_round_instructions(degree: int, fill: int) -> float:
                  + OPS["sub"].sum() + blocks * OPS["sha_block"].sum())
 
 
+# total degrees of the standalone round's checks above the usual ones: the
+# cap of 16 that the kernel once had, each side of it, and well past it
+HIGH_DEGREES = (3, 16, 17, 33, 64)
+# the degrees timed: P4's round (the main row), and two past the old cap
+TIMED_DEGREES = (3, 17, 64)
+
+
 def sumcheck_round_scalars_cases(dev, rng, main: dict) -> list:
     """The standalone round mode against its plain version on the card over
     seeded transcript states (fills 0-63, one to three blocks absorbed
-    before), total degrees 2-8, lane sums to 2^63 - 1 and prev at 0 and p - 1;
-    the timed row is P4's round (degree 3), its device time from a replayed
-    CUDA graph of back-to-back launches, its bound
+    before), total degrees 2-8 and ``HIGH_DEGREES``, lane sums to 2^63 - 1
+    and prev at 0 and p - 1; the timed rows are P4's round (degree 3, the
+    main row) and degrees 17 and 64, each with its device time from a
+    replayed CUDA graph of back-to-back launches and its bound
     `sumcheck_round_instructions` at one instruction a clock."""
     lane_cases = ((1 << 55) - 1, 1 << 63, 1 << 32, 1)
 
@@ -589,37 +598,40 @@ def sumcheck_round_scalars_cases(dev, rng, main: dict) -> list:
         return state, prev, digest, coeffs, r
 
     bad, worst, n = 0, 0, 0
-    for degree in range(2, 9):
-        for case in range(64):
+    for degree, states in [(d, 64) for d in range(2, 9)] + [(d, 16) for d in HIGH_DEGREES]:
+        for case in range(states):
             args = inputs(case, degree)
             res = compare(launch(dtr.sumcheck_round_scalars, *args), launch(dtr.sumcheck_round_scalars_plain, *args))
             bad += res["mismatches"]
             worst = max(worst, res["max_abs_err"])
             n += 1
-    rows = [{"kernel": "sumcheck_round_scalars", "case": f"{n} launches: 64 seeded states x total degrees 2-8, "
-             "fills 0-63, lanes to 2^63 - 1, prev 0 and p-1", "mismatches": bad, "max_abs_err": worst}]
+    rows = [{"kernel": "sumcheck_round_scalars", "case": f"{n} launches: 64 seeded states x total degrees 2-8 and "
+             f"16 x degrees {', '.join(map(str, HIGH_DEGREES))}; fills 0-63, lanes to 2^63 - 1, prev 0 and p-1",
+             "mismatches": bad, "max_abs_err": worst,
+             "degree_limit_of_this_card": dtr.sumcheck_degree_limit(dev)}]
     if bad:
         raise RuntimeError(f"kernel sumcheck_round_scalars disagrees with its plain version: {rows[-1]}")
 
-    degree = 3
-    state, prev, sums, vinv = inputs(1, degree)  # a fill of 1 + 64 bytes
-    digest = torch.empty(8, dtype=torch.int32, device=dev)
-    coeffs = torch.empty((degree, 4), dtype=torch.int32, device=dev)
-    r = torch.empty(4, dtype=torch.int32, device=dev)
-    instructions = sumcheck_round_instructions(degree, 1)
-    bound_ms = instructions / (PEAK["max_sm_mhz"] * 1e6) * 1e3
-    row = {"kernel": "sumcheck_round_scalars", "case": "main: a degree-3 round (P4)",
-           "shapes": [[dtr.STATE_WORDS], [degree, 4], [degree + 1, degree + 1, 4]], "mismatches": 0,
-           "max_abs_err": worst,
-           "kernel_ms": graph_ms(lambda: dtr.sumcheck_round_scalars(state, prev, digest, sums, vinv, coeffs, r),
-                                 copies=100),
-           "plain_ms": time_ms(lambda: dtr.sumcheck_round_scalars_plain(state, prev, digest, sums, vinv, coeffs, r),
-                               5),
-           "bound_ms": bound_ms, "bound_by": "operations", "instructions": instructions}
-    row["bound_share"] = bound_ms / row["kernel_ms"]
-    print(json.dumps(row), file=sys.stderr, flush=True)
-    main.setdefault("sumcheck_round_scalars", row)
-    rows.append(row)
+    for degree in TIMED_DEGREES:
+        state, prev, sums, vinv = inputs(1, degree)  # a fill of 1 + 64 bytes
+        digest = torch.empty(8, dtype=torch.int32, device=dev)
+        coeffs = torch.empty((degree, 4), dtype=torch.int32, device=dev)
+        r = torch.empty(4, dtype=torch.int32, device=dev)
+        instructions = sumcheck_round_instructions(degree, 1)
+        bound_ms = instructions / (PEAK["max_sm_mhz"] * 1e6) * 1e3
+        row = {"kernel": "sumcheck_round_scalars",
+               "case": "main: a degree-3 round (P4)" if degree == 3 else f"a degree-{degree} round",
+               "shapes": [[dtr.STATE_WORDS], [degree, 4], [degree + 1, degree + 1, 4]], "mismatches": 0,
+               "max_abs_err": worst,
+               "kernel_ms": graph_ms(lambda: dtr.sumcheck_round_scalars(state, prev, digest, sums, vinv, coeffs, r),
+                                     copies=100),
+               "plain_ms": time_ms(lambda: dtr.sumcheck_round_scalars_plain(state, prev, digest, sums, vinv, coeffs,
+                                                                            r), 5),
+               "bound_ms": bound_ms, "bound_by": "operations", "instructions": instructions}
+        row["bound_share"] = bound_ms / row["kernel_ms"]
+        print(json.dumps(row), file=sys.stderr, flush=True)
+        main.setdefault("sumcheck_round_scalars" if degree == 3 else f"sumcheck_round_scalars/degree {degree}", row)
+        rows.append(row)
     return rows
 
 
@@ -1352,9 +1364,10 @@ def rounds_without_sync(session, to_bytes, want_sha256: str) -> dict:
             "round_scalars_launches": dtr.launch_counts()["round_scalars"], "proof_equals_timed_prove": True}
 
 
-def pcs_phase(dev, log_sizes) -> None:
+def pcs_phase(dev, log_sizes) -> str:
     """PCS prove and verify at each size; the largest is a main path, and
-    its rounds are also run once under the sync check."""
+    its rounds are also run once under the sync check.  Returns the
+    largest proof's SHA-256."""
     config = ProverConfig(device=str(dev))
     results = []
     for log_n in log_sizes:
@@ -1377,12 +1390,13 @@ def pcs_phase(dev, log_sizes) -> None:
         clear_caches()
         torch.cuda.empty_cache()
     emit("pcs", sizes=results)
+    return results[-1]["proof_sha256"]
 
 
-def batched_pcs_phase(dev, log_sizes) -> None:
+def batched_pcs_phase(dev, log_sizes) -> str:
     """Batched PCS prove and verify of BATCH_POLYS polynomials at each size;
     the largest is a main path, and its rounds 1.. are also run once under
-    the sync check."""
+    the sync check.  Returns the largest proof's SHA-256."""
     config = ProverConfig(device=str(dev))
     results = []
     for log_n in log_sizes:
@@ -1407,6 +1421,7 @@ def batched_pcs_phase(dev, log_sizes) -> None:
         clear_caches()
         torch.cuda.empty_cache()
     emit("batched_pcs", sizes=results)
+    return results[-1]["proof_sha256"]
 
 
 def full_random_field(rng: np.random.Generator, shape, device) -> torch.Tensor:
@@ -1476,10 +1491,11 @@ def snark_rounds_without_sync(kind: str, trace: Trace, config: ProverConfig, wan
             "host_issue_s_per_round": issue_s / launched, "proof_equals_timed_prove": True}
 
 
-def snark_phase(dev) -> None:
+def snark_phase(dev) -> dict:
     """Each SNARK path once through ``System.prove_snark`` (timed to the end
     of the card's work) and ``System.verify_snark`` on the host, then its
-    sumcheck rounds once more under the sync check."""
+    sumcheck rounds once more under the sync check.  Returns {path: proof
+    SHA-256}."""
     config = ProverConfig(device=str(dev))
     results = []
     for label, kind, log_n in SNARK_PATHS:
@@ -1524,6 +1540,7 @@ def snark_phase(dev) -> None:
         clear_caches()
         torch.cuda.empty_cache()
     emit("snark", paths=results)
+    return {r["path"]: r["proof_sha256"] for r in results}
 
 
 def profile_snark_rounds(dev, label: str, kind: str, log_n: int) -> None:
@@ -1552,6 +1569,247 @@ def profile_snark_rounds(dev, label: str, kind: str, log_n: int) -> None:
     del session, trace
     clear_caches()
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# checkpoint / resume of the three sessions
+# ---------------------------------------------------------------------------
+
+
+def checkpoint_case(label: str, build, advance, launch_rest, resume, to_bytes, verify, want_sha256: str,
+                    fresh_process: bool = False) -> dict:
+    """One session saved half way and resumed: ``build`` it, ``advance`` it
+    about half way, save it into a temporary directory, drop it and the
+    card's cached blocks, ``resume`` it (load, trees rebuilt, transcript
+    hopped to the card), launch its remaining rounds under
+    ``torch.cuda.set_sync_debug_mode("error")``, finish and verify.  The
+    proof must be the uninterrupted one of the same seed, byte for byte (by
+    SHA-256).  The launch counts from the resume to the finished proof are
+    the path ``label``.  With ``fresh_process``, the file is also resumed
+    and finished by this script in a new process (``--resume-pcs``)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "session.npz")
+        session = build()
+        advance(session)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        session.save(path)
+        save_s = time.perf_counter() - t0
+        on_disk = sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp))
+        del session
+        gc.collect()
+        clear_caches()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        session = resume(path)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        copies = stats.counts().get("d2h_copies", 0)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            launched = launch_rest(session)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        copies_in_rounds = stats.counts().get("d2h_copies", 0) - copies
+        t0 = time.perf_counter()
+        blob = to_bytes(session.finish())
+        torch.cuda.synchronize()
+        finish_s = time.perf_counter() - t0
+        PATH_LAUNCHES[label] = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        del session
+        clear_caches()
+        torch.cuda.empty_cache()
+        digest = hashlib.sha256(blob).hexdigest()
+        verify(blob)
+        row = {"path": label, "save_s": save_s, "bytes_on_disk": on_disk, "resume_s": resume_s,
+               "rounds_launched_after_resume": launched, "d2h_copies_in_rounds": copies_in_rounds,
+               "finish_s": finish_s, "peak_device_bytes_after_resume": peak, "proof_sha256": digest,
+               "uninterrupted_sha256": want_sha256, "proof_bytes": len(blob)}
+        if fresh_process:
+            res = subprocess.run([sys.executable, os.path.abspath(__file__), "--resume-pcs", path],
+                                 capture_output=True, text=True, timeout=600, cwd=HERE)
+            lines = res.stdout.strip().splitlines()
+            if res.returncode != 0 or not lines:
+                raise RuntimeError(f"{label}: the resume in a fresh process failed (rc {res.returncode}): "
+                                   f"{res.stderr[-2000:]}")
+            row["fresh_process"] = json.loads(lines[-1])
+    if copies_in_rounds or digest != want_sha256 or (
+            fresh_process and row["fresh_process"]["proof_sha256"] != want_sha256):
+        raise RuntimeError(f"{label}: the resumed proof is not the uninterrupted one: {row}")
+    emit("checkpoint_case", **row)
+    return row
+
+
+def resume_pcs_only(path: str) -> int:
+    """``--resume-pcs PATH``: resume a saved PCS session in this (new)
+    process, finish and verify it, and print the proof's SHA-256 with the
+    times of the kernels' load and of the resume."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
+        return 2
+    start = time.perf_counter()
+    _build.lib()
+    load_s = time.perf_counter() - start
+    t0 = time.perf_counter()
+    session = PCSProverSession.resume(path, ProverConfig(device="cuda:0"))
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    session.run_rounds()
+    blob = pcs_proof_to_bytes(session.finish())
+    pcs_proof_from_bytes(blob).verify(Transcript())
+    print(json.dumps({"phase": "resumed_in_a_fresh_process", "proof_sha256": hashlib.sha256(blob).hexdigest(),
+                      "kernels_load_s": load_s, "kernels_built_in_this_process": bool(_build.build_log),
+                      "resume_s": resume_s, "wall_s": time.perf_counter() - start}), flush=True)
+    return 0
+
+
+def checkpoint_phase(dev, pcs_log_n: int, batched_log_n: int, pcs_sha: str, batched_sha: str,
+                     snark_shas: dict) -> list:
+    """Each of the three sessions saved about half way and resumed: the PCS
+    at 2^pcs_log_n (also resumed once in a fresh process), the batched PCS of
+    BATCH_POLYS x 2^batched_log_n, and the SNARK paths in both phases - saved
+    in the sumcheck and resumed, saved in the PCS and resumed.  Returns the
+    labels of the driven paths."""
+    config = ProverConfig(device=str(dev))
+    rows = []
+
+    def pcs_session():
+        evals, point, output = seeded_claim(pcs_log_n, 1000 + pcs_log_n, dev)
+        return PCSProverSession(point, output, evals, Transcript(), config)
+
+    rows.append(checkpoint_case(
+        f"checkpoint pcs 2^{pcs_log_n}", pcs_session, lambda s: s.run_rounds(pcs_log_n // 2),
+        lambda s: s.launch_rounds(), lambda path: PCSProverSession.resume(path, config), pcs_proof_to_bytes,
+        lambda b: pcs_proof_from_bytes(b).verify(Transcript()), pcs_sha, fresh_process=True))
+
+    def batched_session():
+        polys, claim = seeded_batched_claim(BATCH_POLYS, batched_log_n, 2000 + batched_log_n, dev)
+        return BatchedPCSProverSession(claim, polys, Transcript(), config)
+
+    rows.append(checkpoint_case(
+        f"checkpoint batched pcs {BATCH_POLYS} x 2^{batched_log_n}", batched_session,
+        lambda s: s.run_rounds(batched_log_n // 2 - 1), lambda s: s.launch_rounds(),
+        lambda path: BatchedPCSProverSession.resume(path, config), batched_pcs_proof_to_bytes,
+        lambda b: batched_pcs_proof_from_bytes(b).verify(Transcript()), batched_sha))
+
+    for label, kind, log_n in SNARK_PATHS:
+        constraints, layout = snark_constraints(kind, 1 if kind == "width1" else 4)
+
+        def snark_session(kind=kind, log_n=log_n):
+            trace = snark_trace(kind, log_n, dev)
+            return SnarkProverSession(Transcript(), *snark_constraints(kind, trace.width), trace, config=config)
+
+        def in_pcs(s, log_n=log_n):
+            s.run_sumcheck_rounds()
+            s.start_pcs()
+            s.run_pcs_rounds(log_n // 2)
+
+        resume = (lambda path, c=constraints, l=layout: SnarkProverSession.resume(path, c, l, config))
+        verify = (lambda b, kind=kind, width=layout.columns, log_n=log_n: snark_verify(kind, width, log_n, b))
+        rows.append(checkpoint_case(
+            f"checkpoint {label} in the sumcheck", snark_session, lambda s, log_n=log_n: s.run_sumcheck_rounds(
+                log_n // 2), lambda s: s.launch_sumcheck_rounds(), resume, snark_proof_to_bytes, verify,
+            snark_shas[label]))
+        rows.append(checkpoint_case(
+            f"checkpoint {label} in the pcs", snark_session, in_pcs, lambda s: s.pcs_session.launch_rounds(),
+            resume, snark_proof_to_bytes, verify, snark_shas[label]))
+    emit("checkpoint", cases=[{k: r[k] for k in ("path", "save_s", "resume_s", "bytes_on_disk",
+                                                  "peak_device_bytes_after_resume")} for r in rows], ok=True)
+    return [r["path"] for r in rows]
+
+
+# ---------------------------------------------------------------------------
+# a SNARK above the standalone round's old degree cap
+# ---------------------------------------------------------------------------
+
+DEGREE_LOG_N = 16
+DEGREE = 17  # the constraint's; its rounds have total degree 18
+DEGREE_PATH = f"snark of a degree-{DEGREE} constraint, 2^{DEGREE_LOG_N} rows"
+
+
+def power_constraint(e: int):
+    """x^e - x: zero on a column of bits, non-zero at the extension points."""
+    def constraint(v, r):
+        acc = v[0]
+        for _ in range(e - 1):
+            acc = acc * v[0]
+        return acc - v[0]
+
+    return constraint
+
+
+def degree_phase(dev) -> None:
+    """A SNARK whose constraint has degree DEGREE, over one column of
+    2^DEGREE_LOG_N bits (numpy seed 5000): proved on the card and on the
+    CPU's plain path, the bytes equal, and verified."""
+    bits = np.random.default_rng(5000).integers(0, 2, size=1 << DEGREE_LOG_N).astype(np.uint64)
+    cs, layout = ConstraintSet([power_constraint(DEGREE)], DEGREE), WitnessLayout(columns=1)
+    out, secs = {}, {}
+    for where in (str(dev), "cpu"):
+        trace = Trace.from_columns([bits], where)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        transcript = Transcript()
+        proof = System.prover(transcript, cs, layout, trace, ProverConfig(device=where)).prove_snark(transcript)
+        torch.cuda.synchronize()
+        secs[where] = time.perf_counter() - t0
+        if where != "cpu":
+            PATH_LAUNCHES[DEGREE_PATH] = launch_counts()
+        out[where] = snark_proof_to_bytes(proof)
+    transcript = Transcript()
+    System.verifier(transcript, cs, layout, Commitment(), DEGREE_LOG_N).verify_snark(
+        transcript, snark_proof_from_bytes(out[str(dev)]))
+    ok = out[str(dev)] == out["cpu"]
+    emit("degree", path=DEGREE_PATH, round_total_degree=DEGREE + 1, card_prove_s=secs[str(dev)],
+         cpu_prove_s=secs["cpu"], proof_bytes=len(out["cpu"]), card_equals_cpu=ok,
+         sha256=hashlib.sha256(out[str(dev)]).hexdigest(), verified=True)
+    if not ok:
+        raise RuntimeError("the degree-17 SNARK's bytes differ between the card and the CPU")
+
+
+# ---------------------------------------------------------------------------
+# the smaller entry points: intt, evaluate_coeffs, mul_small, dot_mod, pow_const
+# ---------------------------------------------------------------------------
+
+API_LOG_N = 24
+API_PATH = f"intt(ntt(x)) at 2^{API_LOG_N}, and intt, evaluate_coeffs, mul_small, dot_mod, pow_const at 2^16"
+
+
+def api_phase(dev) -> None:
+    """``intt(ntt(x)) == x`` at 2^API_LOG_N on the card; ``intt``,
+    ``mle.evaluate_coeffs``, ``ops.mul_small``, ``ops.dot_mod`` and
+    ``ops.pow_const`` on the card equal to the same calls on the CPU's plain
+    path (numpy seed 6000).  Then ``intt``'s time at 2^API_LOG_N."""
+    rng = np.random.default_rng(6000)
+    x = random_field(rng, (1 << API_LOG_N,), dev)
+    small = random_field(rng, (1 << 16,), "cpu")
+    point = [Fp(int.from_bytes(rng.bytes(16), "little")) for _ in range(16)]
+    torch.cuda.synchronize()
+    reset_counts()
+    roundtrip = torch.equal(ntt.intt(ntt.ntt(x)), x)
+    card = {
+        "intt": lambda d: ntt.intt(small.to(d)),
+        "evaluate_coeffs": lambda d: mle.evaluate_coeffs(small.to(d), point),
+        "mul_small": lambda d: torch.stack([ops.mul_small(small.to(d), k) for k in (0, 1, 45, (1 << 16) - 1)]),
+        "dot_mod": lambda d: ops.dot_mod(small.to(d).view(4, -1, 4), small.flip(0).to(d).view(4, -1, 4), dim=1),
+        "pow_const": lambda d: torch.stack([ops.pow_const(small[:1024].to(d), e) for e in (0, 1, 2**64 + 3)]),
+    }
+    got = {name: fn(dev) for name, fn in card.items()}
+    torch.cuda.synchronize()
+    PATH_LAUNCHES[API_PATH] = launch_counts()
+    equal = {name: torch.equal(got[name].cpu(), fn("cpu")) for name, fn in card.items()}
+    intt_ms = time_ms(lambda: ntt.intt(x), 3)
+    del x
+    clear_caches()
+    torch.cuda.empty_cache()
+    emit("api", path=API_PATH, intt_ntt_roundtrip=roundtrip, card_equals_cpu=equal, intt_ms=intt_ms)
+    if not roundtrip or not all(equal.values()):
+        raise RuntimeError("an entry point disagrees on the card")
 
 
 def _golden(name: str) -> dict:
@@ -1677,7 +1935,12 @@ def main() -> int:
                     help="comma-separated log2 sizes of the batched PCS phase (default: %(default)s)")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one prove of each main path at its largest size with torch.profiler")
+    ap.add_argument("--resume-pcs", metavar="PATH",
+                    help="only resume the PCS session saved at PATH, finish it and print its SHA-256 "
+                         "(the checkpoint phase runs this in a fresh process)")
     args = ap.parse_args()
+    if args.resume_pcs:
+        return resume_pcs_only(args.resume_pcs)
     log_sizes = sorted(int(x) for x in args.log_sizes.split(","))
     batched_sizes = sorted(int(x) for x in args.batched_log_sizes.split(","))
     if not torch.cuda.is_available():
@@ -1720,9 +1983,12 @@ def main() -> int:
 
     timed = kernels_phase(dev)
     routes_phase(dev, log_sizes[-1], batched_sizes[-1])
-    pcs_phase(dev, log_sizes)
-    batched_pcs_phase(dev, batched_sizes)
-    snark_phase(dev)
+    pcs_sha = pcs_phase(dev, log_sizes)
+    batched_sha = batched_pcs_phase(dev, batched_sizes)
+    snark_shas = snark_phase(dev)
+    checkpoint_paths = checkpoint_phase(dev, log_sizes[-1], batched_sizes[-1], pcs_sha, batched_sha, snark_shas)
+    degree_phase(dev)
+    api_phase(dev)
     if args.profile:
         config = ProverConfig(device=str(dev))
         evals, point, output = seeded_claim(log_sizes[-1], 1000 + log_sizes[-1], dev)
@@ -1747,9 +2013,11 @@ def main() -> int:
 
     # the driven paths: the largest PCS prove, the largest batched prove, the
     # tiny proves that reach the single-stage butterfly, the message-hashing
-    # entry, which no prove calls, and the two SNARK proves
-    main_paths = [f"pcs 2^{log_sizes[-1]}", f"batched pcs {BATCH_POLYS} x 2^{batched_sizes[-1]}",
-                  "pcs 2^1, 2^2, 2^3", MESSAGES_PATH] + [label for label, _, _ in SNARK_PATHS]
+    # entry, which no prove calls, the two SNARK proves, the resumed proves,
+    # the SNARK above the old degree cap, and the smaller entry points
+    main_paths = ([f"pcs 2^{log_sizes[-1]}", f"batched pcs {BATCH_POLYS} x 2^{batched_sizes[-1]}",
+                   "pcs 2^1, 2^2, 2^3", MESSAGES_PATH] + [label for label, _, _ in SNARK_PATHS]
+                  + checkpoint_paths + [DEGREE_PATH, API_PATH])
     kernels = []
     for name, meta in KERNELS.items():
         row = timed[name]

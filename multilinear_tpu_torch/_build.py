@@ -58,6 +58,7 @@ KERNELS = {
     "mlt_fold_commit": ("fold_commit", [_p, _p, _p, _p, _i64, _i64, _p, _int, _p]),
     "mlt_round_scalars": ("round_scalars", [_p, _p, _p, _p, _p, _p, _p, _int, _p]),
     "mlt_sumcheck_round_scalars": ("round_scalars", [_p, _p, _p, _int, _p, _p, _p, _p, _int, _p]),
+    "mlt_sumcheck_max_degree": ("round_scalars", [_int]),
     # the kernels that sha256_leaves / merkle_levels / zm / kron replaced, bound
     # only for previous_routes.py (the smoke script's comparison of routes)
     "mlt_sha256_words": ("prev_sha256_words", [_p, _p, _i64, _int, _int, _p]),

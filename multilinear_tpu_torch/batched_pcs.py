@@ -23,12 +23,14 @@ kernels, which carry a batch extent.
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass
 from typing import List, Optional
 
 import torch
 
 from .batched_fri import BatchedFriProof, BatchedFriProverData, _fingerprint_codes, fingerprint
+from .checkpoint import load_batched_pcs_state, normalize_ckpt_path, save_batched_pcs_state
 from .config import LOG_BLOWUP, NUM_QUERIES, ProverConfig
 from .field import ops
 from .field.scalar import Fp
@@ -120,7 +122,7 @@ class BatchedPCSProverSession:
     construct (encode the B MLEs, commit the batch column tree, draw
     ``fingerprint_r``, build the tables of the combined MLE, run round 0 with
     its batched fold), run some or all of rounds 1.., finish (queries).
-    Saving a session to disk and resuming it is a later slice."""
+    ``save`` / ``resume`` as in the plain PCS session."""
 
     def __init__(
         self,
@@ -197,3 +199,32 @@ class BatchedPCSProverSession:
             last_random=self.transcript.random(),
         )
         return BatchedPCSProof(fri_proof, self.pols, self.claim)
+
+    # -- persistence -----------------------------------------------------------
+    def save(self, path: str) -> None:
+        """Save the session to ``path`` (``.npz`` appended if missing) and its
+        claim to ``path + ".claim"``.  Rounds launched and not replayed yet -
+        round 0 too, which the constructor launched - are replayed first."""
+        self.pols += self.rounds.replay(self.bfri.fri_data)
+        path = normalize_ckpt_path(path)
+        save_batched_pcs_state(path, self.tables, self.bfri, self.transcript, self.k, self.rounds.running_sum(),
+                               self.pols)
+        with open(path + ".claim", "w") as f:
+            json.dump({"inputs": [x.v for x in self.claim.inputs], "outputs": [x.v for x in self.claim.outputs]}, f)
+
+    @staticmethod
+    def resume(path: str, config: Optional[ProverConfig] = None) -> "BatchedPCSProverSession":
+        """The session saved at ``path``, on ``config.device`` (default: the
+        card), the batch tree and the fold trees rebuilt."""
+        path = normalize_ckpt_path(path)
+        s = BatchedPCSProverSession.__new__(BatchedPCSProverSession)
+        s.config = config or ProverConfig()
+        s.tables, s.bfri, s.transcript, s.k, prev, s.pols = load_batched_pcs_state(
+            path, s.config.device, s.config.debug_checks)
+        with open(path + ".claim") as f:
+            claim = json.load(f)
+        s.claim = BatchedPCSClaim([Fp(int(v)) for v in claim["inputs"]], [Fp(int(v)) for v in claim["outputs"]])
+        s.n_vars = len(s.claim.inputs)
+        s.rounds = DeviceRounds(s.transcript, s.n_vars, prev, s.tables.data.device)
+        s.rounds.roots_absorbed = s.k - 1  # round 0 absorbed no fold root, round j >= 1 that of tree j - 1
+        return s

@@ -27,13 +27,15 @@
 // every entry of the last fold's codeword must equal - and writes the digest.
 //
 // A standalone sumcheck round (sumcheck_round_scalars_kernel, a second
-// entry of this file) has no roots and any total degree d = 1..16:
+// entry of this file) has no roots and any total degree d >= 1 whose
+// evaluations and coefficients fit in a block's shared memory:
 //   1. reduces the d unreduced int64 limb sums s(1)..s(d) mod p;
 //   2. s0 = prev - s1;
 //   3. the d + 1 coefficients c = V^-1 (s0, s1, ..., sd), V^-1 read from a
 //      (d+1, d+1) table of field elements in device memory; its row 0 is
 //      e0 (c0 = p(0) = s0), so only rows 1..d are multiplied;
-//   4. absorbs c1..cd as 16 little-endian bytes each (Q7, Q9), draws r;
+//   4. absorbs c1..cd as 16 little-endian bytes each (Q7, Q9), each as it
+//      is made, draws r;
 //   5. writes c1..cd into `coeffs` (the round's slot), prev' = p(r) (Horner)
 //      over `prev`, and r into `r_out` (the round's slot of the randoms,
 //      where the table fold reads it);
@@ -219,10 +221,11 @@ extern "C" int mlt_round_scalars(void* state, const void* root, const void* elem
   return (int)cudaGetLastError();
 }
 
-// The most total degree a standalone round takes: its evaluations and
-// coefficients live in local arrays of SC_MAX_DEGREE + 1 elements, and the
-// absorbed coefficients in one shared buffer.
-#define SC_MAX_DEGREE 16
+// A standalone round keeps its d + 1 evaluations and d + 1 coefficients in
+// dynamic shared memory, sized at launch: SC_BYTES_PER_POINT (d + 1) bytes.
+// Each coefficient is absorbed as it is made, through a 16-byte buffer.  The
+// only cap on d is what a block's shared memory holds (mlt_sumcheck_max_degree).
+#define SC_BYTES_PER_POINT 32
 
 __global__ void sumcheck_round_scalars_kernel(int* __restrict__ state,
                                               const unsigned long long* __restrict__ sums,
@@ -230,7 +233,8 @@ __global__ void sumcheck_round_scalars_kernel(int* __restrict__ state,
                                               void* __restrict__ prev, void* __restrict__ coeffs,
                                               void* __restrict__ r_out, int* __restrict__ digest) {
   __shared__ tr_state s;
-  __shared__ unsigned char msg[16 * SC_MAX_DEGREE];
+  __shared__ unsigned char msg[16];
+  extern __shared__ uint4 sc_points[];  // ev[0..d], then c[0..d]
 #pragma unroll
   for (int j = 0; j < 8; ++j) s.st[j] = (u32)state[j];
 #pragma unroll
@@ -239,21 +243,23 @@ __global__ void sumcheck_round_scalars_kernel(int* __restrict__ state,
   s.total = (u32)state[25];
 
   const int n = degree + 1;
-  fp ev[SC_MAX_DEGREE + 1], c[SC_MAX_DEGREE + 1];
+  uint4* ev = sc_points;
+  uint4* c = sc_points + n;
 #pragma unroll 1
-  for (int i = 1; i < n; ++i) ev[i] = reduce_lane_sums(sums + 4 * (i - 1));
-  ev[0] = fp_sub(fp_load(prev, 0), ev[1]);
-  c[0] = ev[0];
-  int len = 0;
+  for (int i = 1; i < n; ++i) fp_store(ev, i, reduce_lane_sums(sums + 4 * (i - 1)));
+  const fp s0 = fp_sub(fp_load(prev, 0), fp_load(ev, 1));
+  fp_store(ev, 0, s0);
+  fp_store(c, 0, s0);
 #pragma unroll 1
   for (int j = 1; j < n; ++j) {
-    fp acc = fp_mul(fp_load(vinv, (long long)j * n), ev[0]);
+    fp acc = fp_mul(fp_load(vinv, (long long)j * n), s0);
 #pragma unroll 1
-    for (int i = 1; i < n; ++i) acc = fp_add(acc, fp_mul(fp_load(vinv, (long long)j * n + i), ev[i]));
-    c[j] = acc;
+    for (int i = 1; i < n; ++i) acc = fp_add(acc, fp_mul(fp_load(vinv, (long long)j * n + i), fp_load(ev, i)));
+    fp_store(c, j, acc);
+    int len = 0;
     put_fp(msg, len, acc);
+    tr_absorb(s, msg, len);
   }
-  tr_absorb(s, msg, len);
   u32 d[8];
   tr_digest(s, d);
 
@@ -261,13 +267,13 @@ __global__ void sumcheck_round_scalars_kernel(int* __restrict__ state,
   r.lo = ((u64)sha_bswap(d[1]) << 32) | sha_bswap(d[0]);
   r.hi = ((u64)sha_bswap(d[3]) << 32) | sha_bswap(d[2]);
   r = fp_canon(r, 0ull);
-  fp acc = c[n - 1];
+  fp acc = fp_load(c, n - 1);
 #pragma unroll 1
-  for (int j = n - 2; j >= 0; --j) acc = fp_add(fp_mul(acc, r), c[j]);
+  for (int j = n - 2; j >= 0; --j) acc = fp_add(fp_mul(acc, r), fp_load(c, j));
   fp_store(prev, 0, acc);
   fp_store(r_out, 0, r);
 #pragma unroll 1
-  for (int j = 1; j < n; ++j) fp_store(coeffs, j - 1, c[j]);
+  for (int j = 1; j < n; ++j) fp_store(coeffs, j - 1, fp_load(c, j));
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     digest[j] = (int)d[j];
@@ -279,12 +285,33 @@ __global__ void sumcheck_round_scalars_kernel(int* __restrict__ state,
   state[25] = (int)s.total;
 }
 
+// The largest total degree whose round fits in one block's shared memory on
+// `device` (the opt-in maximum, less the kernel's static shared memory), or
+// -1 if the card cannot be asked.
+extern "C" int mlt_sumcheck_max_degree(int device) {
+  device_guard guard(device);
+  int optin = 0;
+  cudaFuncAttributes attr;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) != cudaSuccess ||
+      cudaFuncGetAttributes(&attr, sumcheck_round_scalars_kernel) != cudaSuccess)
+    return -1;
+  return (int)((optin - (long long)attr.sharedSizeBytes) / SC_BYTES_PER_POINT) - 1;
+}
+
 extern "C" int mlt_sumcheck_round_scalars(void* state, const void* sums, const void* vinv, int degree,
                                           void* prev, void* coeffs, void* r_out, void* digest, int device,
                                           cudaStream_t stream) {
-  if (degree < 1 || degree > SC_MAX_DEGREE) return (int)cudaErrorInvalidValue;
+  if (degree < 1) return (int)cudaErrorInvalidValue;
   device_guard guard(device);
-  sumcheck_round_scalars_kernel<<<1, 1, 0, stream>>>(
+  const size_t bytes = (size_t)SC_BYTES_PER_POINT * (degree + 1);
+  // past the default 48 KiB of a block (with room for the static shared
+  // memory), the kernel must be allowed more; the card refuses what it lacks
+  if (bytes > 47 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(sumcheck_round_scalars_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  sumcheck_round_scalars_kernel<<<1, 1, bytes, stream>>>(
       static_cast<int*>(state), static_cast<const unsigned long long*>(sums), vinv, degree, prev,
       coeffs, r_out, static_cast<int*>(digest));
   return (int)cudaGetLastError();

@@ -17,7 +17,9 @@ JAX package's device transcript takes word-aligned midstates only).
 The standalone sumcheck (``sumcheck.DeviceSumcheckRounds``) has rounds of
 its own schedule - no roots, any total degree, interpolation through
 V^-1 - and a second entry of the same kernel source,
-:func:`sumcheck_round_scalars`.
+:func:`sumcheck_round_scalars`.  Its plain version takes any degree; the
+kernel takes any degree whose round fits in a block's shared memory
+(:func:`sumcheck_degree_limit`, in the thousands on an H100).
 
 The functions here are plain Python over that tensor - what the CPU runs,
 and what the kernels are held against.  ``round_scalars`` and
@@ -39,10 +41,6 @@ from .transcript import Sha256Midstate, Transcript
 
 STATE_WORDS = 26
 _FILL, _TOTAL = 24, 25
-
-# The most total degree of a standalone sumcheck round (csrc/round_scalars.cu,
-# SC_MAX_DEGREE); a larger one raises on every device.
-MAX_SUMCHECK_DEGREE = 16
 
 _LAUNCHES = {"round_scalars": 0, "sumcheck_round_scalars": 0}
 
@@ -244,16 +242,39 @@ def sumcheck_round_scalars_plain(state, prev, digest_out, sums, vinv, coeffs, r_
     state.copy_(_pack(mid, "cpu"))
 
 
+_DEGREE_LIMITS: dict = {}
+
+
+def sumcheck_degree_limit(device) -> Optional[int]:
+    """The largest total degree :func:`sumcheck_round_scalars` takes on
+    ``device``: None (no limit) on the CPU, and on a card the most that one
+    block's shared memory holds, 16 (d + 1) bytes of evaluations and as many
+    of coefficients (asked of the card once)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _DEGREE_LIMITS:
+        from . import _build
+
+        limit = _build.lib()["mlt_sumcheck_max_degree"](index)
+        if limit < 1:
+            raise RuntimeError(f"the shared memory of card {index} could not be read")
+        _DEGREE_LIMITS[index] = limit
+    return _DEGREE_LIMITS[index]
+
+
 def sumcheck_round_scalars(state: torch.Tensor, prev: torch.Tensor, digest_out: torch.Tensor,
                            sums: torch.Tensor, vinv: torch.Tensor, coeffs: torch.Tensor,
                            r_out: torch.Tensor) -> None:
     """One standalone sumcheck round's Fiat-Shamir scalars, in place on the
     device that holds ``state``; arguments as in
     :func:`sumcheck_round_scalars_plain`.  The total degree d is
-    ``sums.shape[0]``, 1 <= d <= ``MAX_SUMCHECK_DEGREE``."""
+    ``sums.shape[0]``, at least 1 and at most :func:`sumcheck_degree_limit`
+    of the state's device."""
     d = sums.shape[0] if isinstance(sums, torch.Tensor) and sums.dim() == 2 else 0
-    if not 1 <= d <= MAX_SUMCHECK_DEGREE:
-        raise ValueError(f"sumcheck_round_scalars: total degree must be 1..{MAX_SUMCHECK_DEGREE}, "
+    if d < 1:
+        raise ValueError(f"sumcheck_round_scalars: the total degree must be at least 1, "
                          f"got sums of shape {tuple(getattr(sums, 'shape', ()))}")
     _check("state", state, torch.int32, (STATE_WORDS,))
     _check("prev", prev, torch.int32, (4,))
@@ -264,11 +285,15 @@ def sumcheck_round_scalars(state: torch.Tensor, prev: torch.Tensor, digest_out: 
     _check("r_out", r_out, torch.int32, (4,))
     if any(t.device != state.device for t in (prev, digest_out, sums, vinv, coeffs, r_out)):
         raise ValueError("sumcheck_round_scalars: every tensor must lie on the state's device")
+    if state.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"sumcheck_round_scalars: unsupported device {state.device}")
+    limit = sumcheck_degree_limit(state.device)
+    if limit is not None and d > limit:
+        raise ValueError(f"sumcheck_round_scalars: a round of total degree {d} needs {32 * (d + 1)} bytes of "
+                         f"shared memory; a block of this card holds a round of degree {limit} at most")
     if state.device.type == "cpu":
         sumcheck_round_scalars_plain(state, prev, digest_out, sums, vinv, coeffs, r_out)
         return
-    if state.device.type != "cuda":
-        raise ValueError(f"sumcheck_round_scalars: unsupported device {state.device}")
     from . import _build
 
     device = state.device

@@ -271,6 +271,39 @@ def sum_mod(a: torch.Tensor, dim: int) -> torch.Tensor:
     return reduce_limb_sums(sum_limbs(a, dim))
 
 
+def dot_mod(a: torch.Tensor, b: torch.Tensor, dim: int) -> torch.Tensor:
+    """sum(a * b) mod p over one value axis: the ``mul`` kernel, then
+    :func:`sum_mod`."""
+    return sum_mod(mul(a, b), dim=dim)
+
+
+def mul_small(a: torch.Tensor, k: int) -> torch.Tensor:
+    """(a * k) mod p for a small constant 0 <= k < 2^16, through the ``mul``
+    kernel reading one packed scalar."""
+    if not 0 <= k < 1 << 16:
+        raise ValueError(f"mul_small takes 0 <= k < 2^16, got {k}")
+    return mul(a, packed_scalar(k, a.device))
+
+
+def pow_const(a: torch.Tensor, e: int) -> torch.Tensor:
+    """a ** e elementwise for a Python-int exponent e >= 0, square and
+    multiply through the ``mul`` kernel (a ** 0 = 1)."""
+    if e < 0:
+        raise ValueError(f"pow_const takes e >= 0, got {e}")
+    result = None
+    base = a
+    while e > 0:
+        if e & 1:
+            result = base if result is None else mul(result, base)
+        e >>= 1
+        if e:
+            base = mul(base, base)
+    if result is None:
+        result = torch.zeros_like(a)
+        result[..., 0] = 1
+    return result
+
+
 # ---------------------------------------------------------------------------
 # operator overloading for constraint expressions
 # ---------------------------------------------------------------------------

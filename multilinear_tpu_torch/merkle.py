@@ -37,6 +37,12 @@ from .field.scalar import Fp
 from .sha256 import digests_to_bytes
 from .sha256_cuda import leaf_hashes, leaf_hashes_plain, tree_levels, tree_levels_plain  # noqa: F401
 
+
+class MerkleRootMismatch(ValueError):
+    """A tree rebuilt from its payload does not reach the root it was saved
+    with: the payload is not the one that was committed."""
+
+
 # Direction encoding, matching the reference enum (src/merkle_tree/mod.rs:13-18):
 # the direction tells where the SIBLING sits relative to the path node.
 RIGHT = 0  # current index even: sibling is the right child
@@ -61,6 +67,23 @@ class MerkleTree:
         assert n & (n - 1) == 0 and n > 0, "leaf count must be a power of two"
         leaf = leaf_hashes(leaf_columns)
         return MerkleTree([leaf] + tree_levels(leaf), leaf_columns)
+
+    @staticmethod
+    def rebuild(payloads: Sequence[torch.Tensor], roots: Sequence[bytes]) -> List["MerkleTree"]:
+        """Trees committed anew from their leaf payloads (a checkpoint keeps
+        the payloads and the roots, not the digest levels), with the same
+        kernels as :meth:`commit`.  The rebuilt roots come to the host in ONE
+        copy, and each must equal its saved root."""
+        trees = [MerkleTree.commit(p) for p in payloads]
+        if not trees:
+            return trees
+        words = stats.fetch(torch.stack([t.root_words for t in trees]))
+        for i, (t, w, root) in enumerate(zip(trees, words, roots)):
+            t.set_root_words(w)
+            if t.root_bytes() != root:
+                raise MerkleRootMismatch(f"tree {i} rebuilt from its payload has root {t.root_bytes().hex()}, "
+                                         f"not the saved {root.hex()}")
+        return trees
 
     @property
     def num_leaves(self) -> int:

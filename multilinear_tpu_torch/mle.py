@@ -164,6 +164,18 @@ def evaluate_evals_host(evals: torch.Tensor, points) -> Fp:
     return Fp(limbs.unpack_int(evaluate_evals(evals, points)))
 
 
+def evaluate_coeffs(coeffs: torch.Tensor, points) -> torch.Tensor:
+    """Evaluate an MLE in coefficient form at a point (reference
+    src/polynomials.rs:126-147): the weight table prod_j x_j^(bit j) of the
+    monomials, then its dot product with the coefficients.  ``coeffs``:
+    (2^n, 4) or a batch (..., 2^n, 4); returns (4,) or (..., 4)."""
+    pts = [Fp(p) for p in points]
+    if not pts:
+        return coeffs[..., 0, :]
+    weights = product_table([(1, p.v) for p in pts], coeffs.device)
+    return ops.dot_mod(weights, coeffs, dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # host reference helpers (exact, for tests and the verifier)
 # ---------------------------------------------------------------------------
@@ -187,3 +199,64 @@ def mask_scalar(index: int, n_vars: int, points) -> Fp:
         pt = Fp(points[n_vars - 1 - i])
         acc = acc * (pt if (index >> i) & 1 else ONE - pt)
     return acc
+
+
+# ---------------------------------------------------------------------------
+# object wrappers (reference src/polynomials.rs:100-188)
+# ---------------------------------------------------------------------------
+
+
+def _as_field_tensor(data, device) -> torch.Tensor:
+    """A (2^n, 4) field tensor from a tensor (kept where it lies unless
+    ``device`` is given) or from host values (packed onto ``device``, by
+    default ``ProverConfig().device``, the card)."""
+    if isinstance(data, torch.Tensor):
+        return data if device is None else data.to(device)
+    from .config import ProverConfig
+
+    return limbs.pack_ints([Fp(v).v for v in data], device=ProverConfig().device if device is None else device)
+
+
+class MultilinearPolynomial:
+    """Coefficient-form MLE (reference src/polynomials.rs:100-147): a thin
+    object over the functions above; ``data`` is the (2^n, 4) field tensor."""
+
+    __slots__ = ("data",)
+
+    def __init__(self, data, device=None):
+        self.data = _as_field_tensor(data, device)
+
+    @property
+    def n_vars(self) -> int:
+        return self.data.shape[-2].bit_length() - 1
+
+    def to_evaluation(self) -> "MultilinearPolynomialEvals":
+        return MultilinearPolynomialEvals(to_evals(self.data))
+
+    def evaluate(self, args) -> Fp:
+        return Fp(limbs.unpack_int(evaluate_coeffs(self.data, args)))
+
+    def coefficients(self):
+        return limbs.unpack_fps(self.data)
+
+
+class MultilinearPolynomialEvals:
+    """Evaluation-form MLE (reference src/polynomials.rs:149-188)."""
+
+    __slots__ = ("data",)
+
+    def __init__(self, data, device=None):
+        self.data = _as_field_tensor(data, device)
+
+    @property
+    def n_vars(self) -> int:
+        return self.data.shape[-2].bit_length() - 1
+
+    def to_coefficient(self) -> MultilinearPolynomial:
+        return MultilinearPolynomial(to_coeffs(self.data))
+
+    def evaluate(self, args) -> Fp:
+        return evaluate_evals_host(self.data, args)
+
+    def evaluations(self):
+        return limbs.unpack_fps(self.data)

@@ -24,7 +24,7 @@ import torch
 from . import stats
 from .config import LOG_BLOWUP  # noqa: F401  (re-exported, as in the JAX package)
 from .field import cuda_ops, limbs, ops
-from .field.scalar import P, pow2_generator
+from .field.scalar import Fp, P, pow2_generator
 from .mle import bitrev_indices, product_table
 
 # Device-constant tables, keyed by (generator, size, device).  At the
@@ -184,6 +184,17 @@ def ntt(coeffs: torch.Tensor) -> torch.Tensor:
     if log_n == 0:
         return coeffs
     return fourstep_transform(coeffs, pow2_generator(log_n).v, log_n)
+
+
+def intt(evals: torch.Tensor) -> torch.Tensor:
+    """Inverse NTT along the value axis (reference src/ntt/mod.rs:131-174):
+    the four-step transform with the inverse generator, then a scale by
+    n^-1 through the ``mul`` kernel, reading one packed scalar."""
+    n = evals.shape[-2]
+    log_n = n.bit_length() - 1
+    assert 1 << log_n == n, "size must be a power of two"
+    x = fourstep_transform(evals, pow2_generator(log_n).inv().v, log_n)
+    return ops.mul(x, ops.packed_scalar(Fp(n).inv().v, x.device))
 
 
 def reed_solomon(coeffs: torch.Tensor, log_blowup: int = LOG_BLOWUP) -> torch.Tensor:

@@ -29,6 +29,7 @@ last element: there is no host tail.
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
@@ -37,6 +38,7 @@ import torch
 
 from . import device_transcript as dtr
 from . import stats
+from .checkpoint import load_pcs_state, normalize_ckpt_path, save_pcs_state
 from .config import LOG_BLOWUP, NUM_QUERIES, ProverConfig
 from .field import limbs, ops
 from .field.scalar import Fp
@@ -135,6 +137,10 @@ class DeviceRounds:
     def r(self) -> torch.Tensor:
         return self.scal[1]
 
+    def running_sum(self) -> Fp:
+        """The running sum the next round starts from (one copy; for a save)."""
+        return Fp(int(limbs.unpack_ints(stats.fetch(self.scal[0]).view(np.uint32))[()]))
+
     @property
     def rh(self) -> torch.Tensor:
         return self.scal[2]
@@ -221,7 +227,8 @@ def run_rounds(session, fri_data: FriProverData, max_rounds: Optional[int]) -> i
 class PCSProverSession:
     """Stage-by-stage PCS prover: construct (encode, commit, tables), run
     some or all rounds, finish (queries).  ``PCSProof.prove`` is the one-shot
-    wrapper.  Saving a session to disk and resuming it is a later slice."""
+    wrapper.  ``save`` writes the session at its round boundary to disk and
+    ``resume`` continues it, in this process or another (``checkpoint``)."""
 
     def __init__(
         self,
@@ -283,3 +290,34 @@ class PCSProverSession:
             last_random=self.transcript.random(),
         )
         return PCSProof(fri_proof, self.pols, list(self.inputs), self.output)
+
+    # -- persistence -----------------------------------------------------------
+    def save(self, path: str) -> None:
+        """Save the session to ``path`` (``.npz`` appended if missing) and its
+        claim to ``path + ".claim"``.  Rounds launched and not replayed yet
+        are replayed first (one copy), so the host transcript is current."""
+        self.pols += self.rounds.replay(self.fri_data)
+        path = normalize_ckpt_path(path)
+        save_pcs_state(path, self.tables, self.fri_data, self.transcript, self.k, self.rounds.running_sum(),
+                       self.pols)
+        with open(path + ".claim", "w") as f:
+            json.dump({"inputs": [x.v for x in self.inputs], "output": self.output.v}, f)
+
+    @staticmethod
+    def resume(path: str, config: Optional[ProverConfig] = None) -> "PCSProverSession":
+        """The session saved at ``path``, its tensors on ``config.device``
+        (default: the card) and its trees rebuilt; the rounds' Fiat-Shamir
+        hops to the device again."""
+        path = normalize_ckpt_path(path)
+        s = PCSProverSession.__new__(PCSProverSession)
+        s.config = config or ProverConfig()
+        s.tables, s.fri_data, s.transcript, s.k, prev, s.pols = load_pcs_state(
+            path, s.config.device, s.config.debug_checks)
+        with open(path + ".claim") as f:
+            claim = json.load(f)
+        s.inputs = [Fp(int(v)) for v in claim["inputs"]]
+        s.output = Fp(int(claim["output"]))
+        s.n_vars = len(s.inputs)
+        s.rounds = DeviceRounds(s.transcript, s.n_vars, prev, s.tables.data.device)
+        s.rounds.roots_absorbed = s.k  # round j absorbed the root of tree j
+        return s

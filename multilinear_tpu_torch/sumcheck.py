@@ -202,6 +202,8 @@ class SumcheckTables:
         height = trace_columns.shape[1]
         if not row_challenges or 1 << len(row_challenges) != height:
             raise ValueError("need one row challenge per variable of the trace, at least one")
+        if debug_checks and not ops.is_canonical(trace_columns):
+            raise ValueError("non-canonical field element in the trace columns")
         data = _pack_tables_kernel(trace_columns, delta_subtables(row_challenges, trace_columns.device))
         return SumcheckTables(data, height, debug_checks)
 
@@ -245,18 +247,26 @@ class DeviceSumcheckRounds:
     draws the challenges into its own transcript, and must reach the same
     randoms and the same digest.  After the last round the tables hold one
     row, each column's MLE at the randoms: ``outputs``.
+
+    ``rounds_done``: the rounds a resumed session ran before it was saved (at
+    a round boundary, all replayed); ``tables`` are then the tables they
+    folded, ``previous_sum`` the running sum and ``transcript`` the host
+    transcript after them, and the round slots keep their indices.
     """
 
     def __init__(self, transcript: Transcript, tables: SumcheckTables, composition: Composition,
-                 total_degree: int, previous_sum: Fp, aux=None):
-        if not 1 <= total_degree <= dtr.MAX_SUMCHECK_DEGREE:
-            raise ValueError(f"total degree must be 1..{dtr.MAX_SUMCHECK_DEGREE}, got {total_degree}")
+                 total_degree: int, previous_sum: Fp, aux=None, rounds_done: int = 0):
         device = tables.data.device
+        limit = dtr.sumcheck_degree_limit(device)
+        if total_degree < 1:
+            raise ValueError(f"the total degree must be at least 1, got {total_degree}")
+        if limit is not None and total_degree > limit:
+            raise ValueError(f"total degree {total_degree}: a round on {device} takes degree {limit} at most")
         self.transcript = transcript
         self.tables = tables
         self.composition = composition
         self.total_degree = total_degree
-        self.n_rounds = tables.height.bit_length() - 1
+        self.n_rounds = rounds_done + tables.height.bit_length() - 1
         # the copies to the device go through pinned memory and do not make
         # the host wait
         self.state = dtr.state_from_host(transcript, device)
@@ -266,8 +276,8 @@ class DeviceSumcheckRounds:
         self.coeffs = torch.empty((self.n_rounds, total_degree, 4), dtype=torch.int32, device=device)
         self.randoms = torch.empty((self.n_rounds, 4), dtype=torch.int32, device=device)
         self.digest = torch.empty(8, dtype=torch.int32, device=device)
-        self.k = 0  # rounds launched
-        self.replayed = 0  # rounds the host transcript has absorbed
+        self.k = rounds_done  # rounds launched
+        self.replayed = rounds_done  # rounds the host transcript has absorbed
         self.outputs: Optional[List[Fp]] = None  # the columns at the randoms, after the last round
 
     def launch(self, max_rounds: Optional[int] = None) -> int:
@@ -283,6 +293,10 @@ class DeviceSumcheckRounds:
             self.k += 1
             done += 1
         return done
+
+    def running_sum(self) -> Fp:
+        """The running sum the next round starts from (one copy; for a save)."""
+        return Fp(int(limbs.unpack_ints(stats.fetch(self.prev).view(np.uint32))[()]))
 
     def replay(self):
         """ONE device->host copy of the coefficients and randoms of the

@@ -28,6 +28,7 @@ Behavioral quirks preserved for transcript parity:
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Sequence
 
@@ -36,6 +37,10 @@ import torch
 
 from . import stats
 from .batched_pcs import BatchedPCSClaim, BatchedPCSProof, BatchedPCSProverSession
+from .checkpoint import (
+    checkpoint_kind, load_snark_sumcheck_state, normalize_ckpt_path, pols_from_meta, pols_to_meta,
+    save_snark_sumcheck_state,
+)
 from .config import ProverConfig
 from .field import limbs
 from .field.scalar import Fp, ZERO
@@ -204,6 +209,13 @@ class ChallengeSet:
         self.trace = [transcript.next_challenge()] * num_randoms
         self.constraint = [transcript.next_challenge()] * log_num_constraints
 
+    @staticmethod
+    def from_values(row: Sequence[Fp], trace: Sequence[Fp], constraint: Sequence[Fp]) -> "ChallengeSet":
+        """The set drawn earlier, from its values (a resumed session)."""
+        ch = ChallengeSet.__new__(ChallengeSet)
+        ch.row, ch.trace, ch.constraint = list(row), list(trace), list(constraint)
+        return ch
+
 
 class System:
     """Prover/verifier context tying constraints, challenges and the trace.
@@ -213,7 +225,9 @@ class System:
 
     def __init__(self, transcript: Transcript, constraints: ConstraintSet, layout: WitnessLayout,
                  commitment: Commitment, log_num_rows: int, trace: Optional[Trace],
-                 config: Optional[ProverConfig] = None):
+                 config: Optional[ProverConfig] = None, challenges: Optional[ChallengeSet] = None):
+        """``challenges``: a set drawn earlier (a resumed session), in place
+        of drawing one from ``transcript``."""
         n_constraints = len(constraints.constraints)
         log_num_constraints = max(n_constraints - 1, 0).bit_length()
         self.constraints = constraints
@@ -221,7 +235,7 @@ class System:
         self.commitment = commitment
         self.config = config or ProverConfig()
         self.trace = None if trace is None else trace.to(self.config.device)
-        self.challenges = ChallengeSet(transcript, layout.randoms, log_num_constraints, log_num_rows)
+        self.challenges = challenges or ChallengeSet(transcript, layout.randoms, log_num_constraints, log_num_rows)
         cc = self.challenges.constraint
         self.constraint_mask = [mask_scalar(i, len(cc), cc) for i in range(n_constraints)]
 
@@ -326,8 +340,9 @@ class SnarkProof:
 class SnarkProverSession:
     """Stage-by-stage SNARK prover: the trace sumcheck (some or all rounds at
     a time), then the PCS opening (some or all rounds at a time), then
-    ``finish``.  ``System.prove_snark`` is the one-shot wrapper.  Saving a
-    session to disk and resuming it is a later slice.
+    ``finish``.  ``System.prove_snark`` is the one-shot wrapper.  ``save``
+    writes the session to disk in either phase and ``resume`` continues it
+    (``checkpoint``).
 
     Phases (``utils.PhaseTimer``): ``snark_tables``, ``sumcheck_rounds``,
     then the PCS session's own (encode, commit_l0 or commit_batch, tables,
@@ -402,3 +417,61 @@ class SnarkProverSession:
         self.pcs_session.run_rounds()
         pcs = self.pcs_session.finish()
         return SnarkProof(self.pols, list(self.outputs), pcs, self.sum_value)
+
+    # -- persistence -------------------------------------------------------------
+    def save(self, path: str) -> None:
+        """Save the session to ``path`` (``.npz`` appended if missing), rounds
+        launched and not replayed yet replayed first.  In the sumcheck phase
+        the file holds the trace, the tables, the transcript, the rounds so
+        far and the challenges; in the PCS phase it is the PCS session's,
+        with the sumcheck's result in ``path + ".snark"``."""
+        path = normalize_ckpt_path(path)
+        if self.pcs_session is None:
+            self._replay()
+            save_snark_sumcheck_state(path, self.trace.columns_device(), self.tables, self.transcript, self.rounds.k,
+                                      self.rounds.running_sum(), self.pols, self.randoms, self.system.challenges,
+                                      self.sum_value, self.rounds.outputs)
+            return
+        self.pcs_session.save(path)
+        with open(path + ".snark", "w") as f:
+            json.dump({"width": len(self.outputs), "sum_value": self.sum_value.v,
+                       "pols": pols_to_meta(self.pols),
+                       "outputs": [x.v for x in self.outputs]}, f)
+
+    @staticmethod
+    def resume(path: str, constraints: ConstraintSet, layout: WitnessLayout,
+               config: Optional[ProverConfig] = None) -> "SnarkProverSession":
+        """The session saved at ``path``, on ``config.device`` (default: the
+        card).  Constraints are callables and are not saved: the caller
+        passes the same ``constraints`` and ``layout`` again."""
+        path = normalize_ckpt_path(path)
+        config = config or ProverConfig()
+        s = SnarkProverSession.__new__(SnarkProverSession)
+        s.config = config
+        if checkpoint_kind(path) == "snark_sumcheck":
+            (cols, s.tables, s.transcript, k, prev, s.pols, s.randoms, ch, s.sum_value,
+             outputs) = load_snark_sumcheck_state(path, config.device, config.debug_checks)
+            s.trace = Trace.from_columns(cols)
+            challenges = ChallengeSet.from_values(ch["row"], ch["trace"], ch["constraint"])
+            s.system = System(s.transcript, constraints, layout, Commitment(s.trace), s.trace.height.bit_length() - 1,
+                              s.trace, config, challenges)
+            s.rounds = DeviceSumcheckRounds(s.transcript, s.tables, constraints.composition_fn(),
+                                            constraints.degree + 1, prev, s.system.aux, rounds_done=k)
+            s.rounds.outputs = outputs
+            s.n_rounds = s.rounds.n_rounds
+            s.outputs = None
+            s.pcs_session = None
+            return s
+        # the PCS phase: the sumcheck is done, and the PCS session holds the rest
+        with open(path + ".snark") as f:
+            sm = json.load(f)
+        session_type = PCSProverSession if sm["width"] == 1 else BatchedPCSProverSession
+        s.pcs_session = session_type.resume(path, config)
+        s.system = s.trace = s.tables = s.rounds = None
+        s.transcript = s.pcs_session.transcript
+        s.sum_value = Fp(int(sm["sum_value"]))
+        s.pols = pols_from_meta(sm["pols"])
+        s.outputs = [Fp(int(v)) for v in sm["outputs"]]
+        s.randoms = list(s.pcs_session.inputs if sm["width"] == 1 else s.pcs_session.claim.inputs)
+        s.n_rounds = len(s.pols)
+        return s

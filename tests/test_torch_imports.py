@@ -50,7 +50,17 @@ def test_import_leaves_no_jax_in_sys_modules(probe):
     assert "multilinear_tpu_torch.device_transcript" in probe["NAMES"]
     assert "multilinear_tpu_torch.system" in probe["NAMES"]
     assert "multilinear_tpu_torch.sumcheck" in probe["NAMES"]
+    assert "multilinear_tpu_torch.checkpoint" in probe["NAMES"]
     assert probe["BAD"] == "[]"
+
+
+def test_the_package_names_every_module(probe):
+    """``__all__`` lists every public module of the package."""
+    import multilinear_tpu_torch
+
+    public = {n.split(".")[1] for n in probe["NAMES"].split(",")
+              if n.count(".") >= 1 and not n.split(".")[1].startswith("_")}
+    assert set(multilinear_tpu_torch.__all__) == public
 
 
 def test_import_triggers_no_build(probe):

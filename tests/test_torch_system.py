@@ -270,16 +270,30 @@ def test_sumcheck_round_plain_matches_host_schedule(degree):
         assert dtr.state_to_host(state).random() == jhost.random()
 
 
-def test_degree_above_the_cap_raises():
-    d = dtr.MAX_SUMCHECK_DEGREE + 1
-    with pytest.raises(ValueError):
+def test_degree_above_the_cap_raises(monkeypatch):
+    """The one cap on a round's total degree is what a card's shared memory
+    holds (``dtr.sumcheck_degree_limit``; the CPU has none): a degree above
+    the device's limit raises in the wrapper and in the round loop, and so
+    does a degree below 1."""
+    assert dtr.sumcheck_degree_limit("cpu") is None
+
+    def call(d):
         dtr.sumcheck_round_scalars(dtr.fresh_state(), torch.zeros(4, dtype=torch.int32),
                                    torch.zeros(8, dtype=torch.int32), torch.zeros((d, 4), dtype=torch.int64),
                                    torch.zeros((d + 1, d + 1, 4), dtype=torch.int32),
                                    torch.zeros((d, 4), dtype=torch.int32), torch.zeros(4, dtype=torch.int32))
+
     tables = psc.SumcheckTables.for_trace([Fp(3)], limbs.pack_ints([1, 2], shape=(1, 2)))
     with pytest.raises(ValueError):
-        psc.DeviceSumcheckRounds(Transcript(), tables, psc.identity_composition, d, Fp(0))
+        call(0)
+    with pytest.raises(ValueError):
+        psc.DeviceSumcheckRounds(Transcript(), tables, psc.identity_composition, 0, Fp(0))
+    call(17)  # above the cap of earlier versions: no limit on the CPU
+    monkeypatch.setattr(dtr, "sumcheck_degree_limit", lambda device: 16)
+    with pytest.raises(ValueError):
+        call(17)
+    with pytest.raises(ValueError):
+        psc.DeviceSumcheckRounds(Transcript(), tables, psc.identity_composition, 17, Fp(0))
 
 
 def test_wrapper_raises_for_a_tensor_on_an_unknown_device():
@@ -311,6 +325,75 @@ def test_compute_all_rounds_matches_jax(name):
         t = Transcript()
         _systems(name, _rows(name, width, log_n), width, (JTranscript(), t))
         pprover.verify_sumcheck_debug(t, ppols, Fp(0))
+
+
+# total degrees above the cap of 16 that the standalone round once had
+HIGH_DEGREES = [17, 20, 33]
+
+
+def _power_constraint(total_degree: int):
+    """x^e - x with e = total_degree - 1 (the delta factor adds one): zero on
+    a column of bits, non-zero at every extension point of a round."""
+    e = total_degree - 1
+
+    def constraint(v, r):
+        acc = v[0]
+        for _ in range(e - 1):
+            acc = acc * v[0]
+        return acc - v[0]
+
+    return constraint
+
+
+def _high_degree_systems(total_degree: int, rows, transcripts):
+    jt, pt = transcripts
+    c = _power_constraint(total_degree)
+    jtrace = jsys.Trace(rows, 1)
+    ptrace = psys.trace_from_jax_columns(np.asarray(jtrace.columns_device()), "cpu")
+    return (jsys.System.prover(jt, jsys.ConstraintSet([c], total_degree - 1), jsys.WitnessLayout(columns=1), jtrace),
+            psys.System.prover(pt, psys.ConstraintSet([c], total_degree - 1), psys.WitnessLayout(columns=1), ptrace,
+                               CPU))
+
+
+@pytest.mark.parametrize("total_degree", HIGH_DEGREES)
+def test_compute_all_rounds_above_the_old_cap_matches_jax(total_degree):
+    rows = _random_columns(1, 4, 70 + total_degree)[0]
+    jt, pt = JTranscript(), Transcript()
+    jprover, pprover = _high_degree_systems(total_degree, rows, (jt, pt))
+    jpols, jrs = jprover.compute_sumcheck_polynomials(jt, jprover.build_tables(), JFp(0))
+    ppols, prs = pprover.compute_sumcheck_polynomials(pt, pprover.build_tables(), Fp(0))
+    assert all(len(p.nonzero_coeffs) == total_degree for p in ppols)
+    assert [[c.v for c in p.nonzero_coeffs] for p in ppols] == [[c.v for c in p.nonzero_coeffs] for p in jpols]
+    assert [r.v for r in prs] == [r.v for r in jrs]
+    assert pt.random() == jt.random()
+
+
+@pytest.mark.parametrize("total_degree", HIGH_DEGREES)
+def test_snark_above_the_old_cap_matches_jax(total_degree):
+    """A SNARK whose constraint has degree total_degree - 1, over a column
+    of bits that satisfies it: byte-identical to the JAX package's, and it
+    verifies."""
+    log_n = 5
+    rows = [int(b) for b in np.random.default_rng(80 + total_degree).integers(0, 2, size=1 << log_n)]
+    jt, pt = JTranscript(), Transcript()
+    jprover, pprover = _high_degree_systems(total_degree, rows, (jt, pt))
+    blob = snark_proof_to_bytes(pprover.prove_snark(pt))
+    assert blob == j_to_bytes(jprover.prove_snark(jt))
+    vt = Transcript()
+    cs = psys.ConstraintSet([_power_constraint(total_degree)], total_degree - 1)
+    psys.System.verifier(vt, cs, psys.WitnessLayout(columns=1), psys.Commitment(), log_n).verify_snark(
+        vt, snark_proof_from_bytes(blob))
+
+
+def test_debug_checks_refuse_a_non_canonical_trace():
+    """With ``debug_checks`` the trace columns are checked where they enter
+    the sumcheck, as the JAX package's ``debug_guard`` checks the fold's
+    input: a limb pattern of p or more raises."""
+    cols = limbs.pack_ints([1, 2, 3, 4], shape=(1, 4))
+    cols[0, 2] = torch.tensor([-1, -1, -1, -1], dtype=torch.int32)  # 2^128 - 1 >= p
+    with pytest.raises(ValueError):
+        psc.SumcheckTables.for_trace([Fp(3), Fp(5)], cols, debug_checks=True)
+    psc.SumcheckTables.for_trace([Fp(3), Fp(5)], cols, debug_checks=False)
 
 
 def test_challenge_set_quirk_q2():
