@@ -19,7 +19,11 @@ and checks that a corrupted proof of each type is rejected.  The rounds of a
 prove draw their challenges on the card: the largest prove of each type (and
 the sumcheck of each SNARK) also runs its rounds under
 ``torch.cuda.set_sync_debug_mode("error")``, and a prove that makes more
-device->host copies than ``MAX_D2H`` fails.
+device->host copies than ``MAX_D2H`` fails.  The ``sharded`` phase proves
+the largest PCS over 4 and 2 ranks, the largest batched PCS over 2 ranks and
+a 2^20 standalone FRI over 4 ranks, each rank a process of this script
+(``--sharded-rank``) on card 0 over gloo (NCCL when the host has a card for
+every rank); each rank's proof must be the single-rank proof's bytes.
 
 Each phase prints one JSON line.  Near the end come one line
 ``{"kernels": [...]}`` with every kernel's launches on the driven paths
@@ -58,6 +62,7 @@ from multilinear_tpu_torch.pcs import PCSProof, PCSProverSession
 from multilinear_tpu_torch.serialize import (
     batched_pcs_proof_from_bytes,
     batched_pcs_proof_to_bytes,
+    fri_proof_to_bytes,
     pcs_proof_from_bytes,
     pcs_proof_to_bytes,
     snark_proof_from_bytes,
@@ -1151,7 +1156,7 @@ def routes_phase(dev, log_n: int = 24, log_b: int = BATCHED_LOG_SIZES[-1]) -> No
     # the block widths on the smaller trees of a prove: device time alone
     # (replayed graphs) and as the host launches them
     widths = []
-    for bits in range(10, 23):
+    for bits in range(10, min(23, log_n + 1)):  # no wider than the leaves made above
         sub = leaf[: 1 << bits].contiguous()
         narrow = [(1 << b, min(b, 9), 1) for b in range(bits, 0, -9)]
         wide = [(1 << b, min(b, 11), 4) for b in range(bits, 0, -11)]
@@ -1364,10 +1369,10 @@ def rounds_without_sync(session, to_bytes, want_sha256: str) -> dict:
             "round_scalars_launches": dtr.launch_counts()["round_scalars"], "proof_equals_timed_prove": True}
 
 
-def pcs_phase(dev, log_sizes) -> str:
+def pcs_phase(dev, log_sizes):
     """PCS prove and verify at each size; the largest is a main path, and
     its rounds are also run once under the sync check.  Returns the
-    largest proof's SHA-256."""
+    largest proof's SHA-256 and its peak device bytes."""
     config = ProverConfig(device=str(dev))
     results = []
     for log_n in log_sizes:
@@ -1390,7 +1395,7 @@ def pcs_phase(dev, log_sizes) -> str:
         clear_caches()
         torch.cuda.empty_cache()
     emit("pcs", sizes=results)
-    return results[-1]["proof_sha256"]
+    return results[-1]["proof_sha256"], results[-1]["peak_device_bytes"]
 
 
 def batched_pcs_phase(dev, log_sizes) -> str:
@@ -1812,6 +1817,193 @@ def api_phase(dev) -> None:
         raise RuntimeError("an entry point disagrees on the card")
 
 
+# ---------------------------------------------------------------------------
+# sharded proves: W ranks over torch.distributed
+# ---------------------------------------------------------------------------
+
+# Each group of rank processes: (world size, its cases as (kind, log2 size)
+# chosen by `sharded_cases`).  Every rank of a group is a process of this
+# script (`--sharded-rank`); the ranks share card 0 over gloo unless the host
+# has a card for each rank (NCCL then, `parallel.multihost.choose`).
+SHARDED_GROUPS = ((4, ("pcs", "fri")), (2, ("pcs", "batched_pcs")))
+SHARDED_FRI_LOG_M = 20
+SHARDED_TIMEOUT_S = 300
+
+
+def sharded_label(kind: str, log_n: int, world: int) -> str:
+    what = {"pcs": f"pcs 2^{log_n}", "batched_pcs": f"batched pcs {BATCH_POLYS} x 2^{log_n}",
+            "fri": f"fri 2^{log_n}"}[kind]
+    return f"sharded {what}, {world} ranks"
+
+
+def fri_codeword(log_m: int, dev) -> torch.Tensor:
+    """The seeded codeword of the FRI case: the Reed-Solomon code of 2^(log_m
+    - 1) random coefficients (seed 4000 + log_m)."""
+    return ntt.reed_solomon(random_field(np.random.default_rng(4000 + log_m), (1 << (log_m - 1),), dev))
+
+
+def sharded_inputs(kind: str, log_n: int, dev, layout):
+    """(prove, to_bytes) of one case on this rank's block of the seeded input
+    (the pcs / batched phases' seeds); the whole input is made and dropped
+    before the prove."""
+    if kind == "pcs":
+        evals, point, output = seeded_claim(log_n, 1000 + log_n, dev)
+        block = layout.shard_rows(evals)
+        return (lambda: PCSProof.prove(point, output, block, Transcript(), ProverConfig(device=str(dev)), layout),
+                pcs_proof_to_bytes)
+    if kind == "batched_pcs":
+        polys, claim = seeded_batched_claim(BATCH_POLYS, log_n, 2000 + log_n, dev)
+        block = layout.shard_batch(polys)
+        return (lambda: BatchedPCSProof.prove(claim, block, Transcript(), ProverConfig(device=str(dev)), layout),
+                batched_pcs_proof_to_bytes)
+    block = layout.shard_rows(fri_codeword(log_n, dev))
+    return (lambda: fri.FriProof.prove(block, Transcript(), layout)), fri_proof_to_bytes
+
+
+def sharded_rank_main(rank: int, world: int, port: int, cases: str) -> int:
+    """``--sharded-rank``: one rank of a group; proves each case
+    (``kind:log_n``, comma-separated) on its block and prints one JSON line
+    per case: the proof's SHA-256, prove_s, this process's peak device bytes,
+    the collectives and their bytes, each round's bytes, the host-staged
+    copies and the kernels' launches."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
+        return 2
+    from multilinear_tpu_torch.parallel import multihost
+
+    layout = multihost.init(rank, world, f"tcp://127.0.0.1:{port}", device="cuda")
+    dev = layout.device
+    _build.lib()
+    try:
+        for case in cases.split(","):
+            kind, log_n = case.split(":")
+            prove, to_bytes = sharded_inputs(kind, int(log_n), dev, layout)
+            gc.collect()
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_counts()
+            t0 = time.perf_counter()
+            proof = prove()
+            torch.cuda.synchronize(dev)
+            prove_s = time.perf_counter() - t0
+            counts, series = stats.counts(), stats.series()
+            launches = launch_counts()
+            print(json.dumps({
+                "sharded_case": case, "rank": rank, "world": world, "backend": layout.backend, "device": str(dev),
+                "proof_sha256": hashlib.sha256(to_bytes(proof)).hexdigest(), "prove_s": prove_s,
+                "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+                "collectives": counts.get("collectives", 0), "collective_bytes": counts.get("collective_bytes", 0),
+                "round_bytes": series.get("round_collective_bytes", []),
+                "staged_copies": counts.get("collective_staged_copies", 0),
+                "rounds_sharded": counts.get("rounds_sharded", 0),
+                "fri_rounds_sharded": counts.get("fri_rounds_sharded", 0),
+                "d2h_copies": counts.get("d2h_copies", 0), "launches": launches}), flush=True)
+            del proof, prove
+    finally:
+        multihost.shutdown()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_group(world: int, cases) -> list:
+    """Start the `world` rank processes of one group and wait for all;
+    returns every rank's case lines.  A rank that fails or outlives
+    SHARDED_TIMEOUT_S fails the run, and no rank outlives this call."""
+    arg = ",".join(f"{k}:{n}" for k, n in cases)
+    port = free_port()
+    outs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        logs = [(open(os.path.join(tmp, f"{r}.out"), "w+"), open(os.path.join(tmp, f"{r}.err"), "w+"))
+                for r in range(world)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--sharded-rank", str(r),
+                                   "--sharded-world", str(world), "--sharded-port", str(port),
+                                   "--sharded-cases", arg], stdout=out, stderr=err, text=True, cwd=HERE)
+                 for r, (out, err) in enumerate(logs)]
+        try:
+            deadline = time.monotonic() + SHARDED_TIMEOUT_S
+            for r, p in enumerate(procs):
+                p.wait(timeout=max(deadline - time.monotonic(), 1))
+            for r, (p, (out, err)) in enumerate(zip(procs, logs)):
+                out.seek(0)
+                err.seek(0)
+                print(err.read()[-3000:], file=sys.stderr, flush=True)
+                if p.returncode != 0:
+                    raise RuntimeError(f"rank {r} of {world} exited with {p.returncode}")
+                outs.append([json.loads(line) for line in out if line.startswith('{"sharded_case"')])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for out, err in logs:
+                out.close()
+                err.close()
+    return outs
+
+
+def sharded_phase(dev, pcs_log_n: int, batched_log_n: int, pcs_sha: str, batched_sha: str,
+                  pcs_peak: int) -> list:
+    """The PCS at 2^pcs_log_n over 4 and 2 ranks, the batched PCS of
+    BATCH_POLYS x 2^batched_log_n over 2 ranks (a rank's polynomials whole),
+    a standalone FRI of 2^SHARDED_FRI_LOG_M values over 4 ranks: each rank's
+    proof must be the single-rank proof of this run, and at 4 ranks each
+    rank's peak device bytes at most half the single-rank PCS prove's.  One
+    JSON line per case; returns the labels of the driven paths."""
+    code = fri_codeword(SHARDED_FRI_LOG_M, dev)
+    fri_sha = hashlib.sha256(fri_proof_to_bytes(fri.FriProof.prove(code, Transcript()))).hexdigest()
+    del code
+    clear_caches()
+    torch.cuda.empty_cache()
+    single = {"pcs": (pcs_log_n, pcs_sha), "batched_pcs": (batched_log_n, batched_sha),
+              "fri": (SHARDED_FRI_LOG_M, fri_sha)}
+    labels = []
+    for world, kinds in SHARDED_GROUPS:
+        cases = [(k, single[k][0]) for k in kinds]
+        t0 = time.perf_counter()
+        outs = run_group(world, cases)
+        group_s = time.perf_counter() - t0
+        for i, (kind, log_n) in enumerate(cases):
+            rows = [o[i] for o in outs]
+            want = single[kind][1]
+            shas = {row["proof_sha256"] for row in rows}
+            if shas != {want}:
+                raise RuntimeError(f"{sharded_label(kind, log_n, world)}: proofs {sorted(shas)} against the "
+                                   f"single rank's {want}")
+            peaks = [row["peak_device_bytes"] for row in rows]
+            # the memory gate holds at the driven size, where the data and not
+            # the fixed tables and buffers set the peak
+            if kind == "pcs" and world == 4 and pcs_log_n == PCS_LOG_SIZES[-1] and max(peaks) > pcs_peak / 2:
+                raise RuntimeError(f"a rank of the 4-rank PCS peaked at {max(peaks)} device bytes, over half of "
+                                   f"the single rank's {pcs_peak}")
+            copies = max(row["d2h_copies"] for row in rows)
+            if kind in MAX_D2H and copies > MAX_D2H[kind]:
+                raise RuntimeError(f"a rank of {sharded_label(kind, log_n, world)} made {copies} device->host copies")
+            if min(row["rounds_sharded"] + row["fri_rounds_sharded"] for row in rows) == 0:
+                raise RuntimeError(f"{sharded_label(kind, log_n, world)} ran no sharded round")
+            label = sharded_label(kind, log_n, world)
+            labels.append(label)
+            PATH_LAUNCHES[label] = {k: sum(row["launches"][k] for row in rows) for k in rows[0]["launches"]}
+            emit("sharded", case=label, world=world, backend=rows[0]["backend"], proof_sha256=want,
+                 equals_single_rank=True, prove_s_per_rank=[row["prove_s"] for row in rows],
+                 peak_device_bytes_per_rank=peaks,
+                 single_rank_peak_device_bytes=pcs_peak if kind == "pcs" else None,
+                 collectives_per_prove=[row["collectives"] for row in rows],
+                 collective_bytes_per_rank=[row["collective_bytes"] for row in rows],
+                 bytes_per_round_rank0=rows[0]["round_bytes"],
+                 staged_copies_per_rank=[row["staged_copies"] for row in rows],
+                 rounds_sharded=rows[0]["rounds_sharded"], fri_rounds_sharded=rows[0]["fri_rounds_sharded"],
+                 d2h_copies_per_rank=[row["d2h_copies"] for row in rows], group_wall_s=group_s)
+    return labels
+
+
 def _golden(name: str) -> dict:
     with open(os.path.join(HERE, "multilinear_tpu_torch", "testdata", name)) as f:
         return json.load(f)
@@ -1938,7 +2130,13 @@ def main() -> int:
     ap.add_argument("--resume-pcs", metavar="PATH",
                     help="only resume the PCS session saved at PATH, finish it and print its SHA-256 "
                          "(the checkpoint phase runs this in a fresh process)")
+    ap.add_argument("--sharded-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--sharded-world", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--sharded-port", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--sharded-cases", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.sharded_rank is not None:
+        return sharded_rank_main(args.sharded_rank, args.sharded_world, args.sharded_port, args.sharded_cases)
     if args.resume_pcs:
         return resume_pcs_only(args.resume_pcs)
     log_sizes = sorted(int(x) for x in args.log_sizes.split(","))
@@ -1983,12 +2181,13 @@ def main() -> int:
 
     timed = kernels_phase(dev)
     routes_phase(dev, log_sizes[-1], batched_sizes[-1])
-    pcs_sha = pcs_phase(dev, log_sizes)
+    pcs_sha, pcs_peak = pcs_phase(dev, log_sizes)
     batched_sha = batched_pcs_phase(dev, batched_sizes)
     snark_shas = snark_phase(dev)
     checkpoint_paths = checkpoint_phase(dev, log_sizes[-1], batched_sizes[-1], pcs_sha, batched_sha, snark_shas)
     degree_phase(dev)
     api_phase(dev)
+    sharded_paths = sharded_phase(dev, log_sizes[-1], batched_sizes[-1], pcs_sha, batched_sha, pcs_peak)
     if args.profile:
         config = ProverConfig(device=str(dev))
         evals, point, output = seeded_claim(log_sizes[-1], 1000 + log_sizes[-1], dev)
@@ -2014,10 +2213,11 @@ def main() -> int:
     # the driven paths: the largest PCS prove, the largest batched prove, the
     # tiny proves that reach the single-stage butterfly, the message-hashing
     # entry, which no prove calls, the two SNARK proves, the resumed proves,
-    # the SNARK above the old degree cap, and the smaller entry points
+    # the SNARK above the old degree cap, the smaller entry points, and the
+    # sharded proves (launches summed over their ranks)
     main_paths = ([f"pcs 2^{log_sizes[-1]}", f"batched pcs {BATCH_POLYS} x 2^{batched_sizes[-1]}",
                    "pcs 2^1, 2^2, 2^3", MESSAGES_PATH] + [label for label, _, _ in SNARK_PATHS]
-                  + checkpoint_paths + [DEGREE_PATH, API_PATH])
+                  + checkpoint_paths + [DEGREE_PATH, API_PATH] + sharded_paths)
     kernels = []
     for name, meta in KERNELS.items():
         row = timed[name]

@@ -31,8 +31,10 @@ What it covers, on one device:
   that later ones replaced, kept for comparison (``previous_routes``), and
   the inputs of the golden proofs (``testdata``).
 
-Multi-GPU proving (the JAX package's ``parallel`` and ``dist``) is not
-ported yet.
+Across W ranks, one process each over ``torch.distributed`` (``parallel``:
+the JAX package's ``parallel`` and ``dist``): the PCS and the standalone FRI
+row-sharded, the batched PCS batch-sharded, each rank ending with the
+single-device proof's bytes.
 """
 
 __version__ = "0.1.0"
@@ -48,6 +50,7 @@ __all__ = [
     "merkle",
     "mle",
     "ntt",
+    "parallel",
     "pcs",
     "poly",
     "previous_routes",

@@ -137,7 +137,7 @@ class BatchedFriProverData:
         inner_n = self.batch_tree.num_leaves // 2
         trees = self.fri_data.trees
         inner_idx = self.fri_data.layer_indices([i % max(inner_n, 1) for i in indices])
-        paths = MerkleTree.open_batch_many([self.batch_tree] + trees, [list(indices)] + inner_idx)
+        paths = self.fri_data.open_many([self.batch_tree] + trees, [list(indices)] + inner_idx)
         return [
             BatchedQueryProof(paths[0][q], QueryProof([paths[1 + l][q] for l in range(len(trees))]))
             for q in range(len(indices))

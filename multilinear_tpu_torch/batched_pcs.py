@@ -70,13 +70,17 @@ class BatchedPCSProof:
         polys: torch.Tensor,
         transcript: Transcript,
         config: Optional[ProverConfig] = None,
+        layout=None,
     ) -> "BatchedPCSProof":
         """``polys``: (B, 2^n, 4) limb tensor of B MLEs in evaluation form;
-        it is moved to ``config.device`` (default: the card).
+        it is moved to ``config.device`` (default: the card).  With a
+        ``parallel.ShardLayout``, ``polys`` is this rank's B/W whole
+        polynomials (``layout.shard_batch``) and every rank returns the same
+        proof.
 
         Reference flow: src/fri/batched_pcs.rs:36-186.
         """
-        session = BatchedPCSProverSession(claim, polys, transcript, config)
+        session = BatchedPCSProverSession(claim, polys, transcript, config, layout)
         session.run_rounds()
         return session.finish()
 
@@ -122,7 +126,13 @@ class BatchedPCSProverSession:
     construct (encode the B MLEs, commit the batch column tree, draw
     ``fingerprint_r``, build the tables of the combined MLE, run round 0 with
     its batched fold), run some or all of rounds 1.., finish (queries).
-    ``save`` / ``resume`` as in the plain PCS session."""
+    ``save`` / ``resume`` as in the plain PCS session.
+
+    With a ``layout`` (``parallel.ShardLayout``) the session is one rank of
+    a batch-sharded prove: ``polys`` is the rank's B/W whole polynomials,
+    encoded here with no traffic; the codewords and the polynomials then
+    turn into row blocks (one all-to-all each), and the batch tree, the
+    fingerprints and every round are the rank's rows (``parallel.rounds``)."""
 
     def __init__(
         self,
@@ -130,18 +140,28 @@ class BatchedPCSProverSession:
         polys: torch.Tensor,
         transcript: Transcript,
         config: Optional[ProverConfig] = None,
+        layout=None,
     ):
         self.config = config or ProverConfig()
         self.claim = BatchedPCSClaim([Fp(x) for x in claim.inputs], [Fp(x) for x in claim.outputs])
         self.n_vars = len(self.claim.inputs)
+        self.layout = layout
+        B = len(self.claim.outputs)
+        ranks = 1 if layout is None else layout.world
+        if B % ranks:
+            raise ValueError(f"a batch of {B} polynomials does not split evenly over {ranks} ranks")
         if (polys.dim() != 3 or polys.shape[1:] != (1 << self.n_vars, 4) or self.n_vars < 1
-                or polys.shape[0] != len(self.claim.outputs) or polys.shape[0] < 1):
+                or polys.shape[0] != B // ranks or polys.shape[0] < 1):
             raise ValueError(
-                "polys must be a (B, 2^n, 4) limb tensor with n = len(inputs) >= 1 and "
+                "polys must be a (B / ranks, 2^n, 4) limb tensor with n = len(inputs) >= 1 and "
                 f"B = len(outputs) >= 1, got {tuple(polys.shape)}"
             )
+        if layout is not None:
+            from .parallel import rounds as sharded
+
+            sharded.check_rows(self.n_vars, layout)
         self.transcript = transcript
-        polys = polys.to(self.config.device).contiguous()
+        polys = polys.to(self.config.device if layout is None else layout.device).contiguous()
         debug = self.config.debug_checks
         if debug and not ops.is_canonical(polys):
             raise ValueError("non-canonical field element in polys")
@@ -152,12 +172,20 @@ class BatchedPCSProverSession:
         codes = encode_mle_for_fri(polys)
         pt.mark("encode")
         self.claim.absorb_into(transcript)
-        self.bfri = BatchedFriProverData.init(codes, transcript, debug_checks=debug)
+        if layout is None:
+            self.bfri = BatchedFriProverData.init(codes, transcript, debug_checks=debug)
+        else:
+            self.bfri = sharded.ShardedBatchedFriProverData.init(codes, transcript, layout, debug)
         del codes
         pt.mark("commit_batch")
         # eval-wise Horner RLC of the B MLEs into one sumcheck polynomial
-        rlc_evals = _fingerprint_codes(polys, self.bfri.fingerprint_limbs)
-        self.tables = SumcheckTables.for_pcs(self.claim.inputs, rlc_evals, debug_checks=debug)
+        if layout is None:
+            rlc_evals = _fingerprint_codes(polys, self.bfri.fingerprint_limbs)
+            self.tables = SumcheckTables.for_pcs(self.claim.inputs, rlc_evals, debug_checks=debug)
+        else:
+            rlc_evals = _fingerprint_codes(sharded.batch_to_rows(polys, layout), self.bfri.fingerprint_limbs)
+            self.tables = sharded.ShardedTables.for_pcs(self.claim.inputs, rlc_evals, layout, debug)
+            self.bfri.fri_data.mark_bytes()
         self.rounds = DeviceRounds(transcript, self.n_vars,
                                    fingerprint(self.bfri.fingerprint_r, self.claim.outputs), polys.device)
         pt.mark("tables")
@@ -205,6 +233,8 @@ class BatchedPCSProverSession:
         """Save the session to ``path`` (``.npz`` appended if missing) and its
         claim to ``path + ".claim"``.  Rounds launched and not replayed yet -
         round 0 too, which the constructor launched - are replayed first."""
+        if self.layout is not None:
+            raise NotImplementedError("a sharded session is not saved yet")
         self.pols += self.rounds.replay(self.bfri.fri_data)
         path = normalize_ckpt_path(path)
         save_batched_pcs_state(path, self.tables, self.bfri, self.transcript, self.k, self.rounds.running_sum(),
@@ -219,6 +249,7 @@ class BatchedPCSProverSession:
         path = normalize_ckpt_path(path)
         s = BatchedPCSProverSession.__new__(BatchedPCSProverSession)
         s.config = config or ProverConfig()
+        s.layout = None
         s.tables, s.bfri, s.transcript, s.k, prev, s.pols = load_batched_pcs_state(
             path, s.config.device, s.config.debug_checks)
         with open(path + ".claim") as f:

@@ -190,10 +190,15 @@ class FriProverData:
             cur = [c % max(cur_n, 1) for c in cur]
         return idx_per_tree
 
+    def open_many(self, trees: Sequence[MerkleTree], idx_lists) -> List[List[MerklePath]]:
+        """Open ``trees`` at many indices each (``MerkleTree.open_batch_many``;
+        a sharded prover gathers over its ranks)."""
+        return MerkleTree.open_batch_many(trees, idx_lists)
+
     def open_queries(self, indices: Sequence[int]) -> List["QueryProof"]:
         """Open many query indices at once: the gathers of all layers come
         back in ONE device->host copy."""
-        paths = MerkleTree.open_batch_many(self.trees, self.layer_indices(indices))
+        paths = self.open_many(self.trees, self.layer_indices(indices))
         return [
             QueryProof([paths[l][q] for l in range(len(self.trees))])
             for q in range(len(indices))
@@ -296,10 +301,21 @@ class FriProof:
     last_random: bytes
 
     @staticmethod
-    def prove(code: torch.Tensor, transcript: Transcript) -> "FriProof":
-        """Fold + 128 transcript-drawn queries (reference src/fri/mod.rs:261-285)."""
-        data = FriProverData.fold(code, transcript)
-        indices = draw_query_indices(transcript, code.shape[0] // 2, NUM_QUERIES)
+    def prove(code: torch.Tensor, transcript: Transcript, layout=None) -> "FriProof":
+        """Fold + 128 transcript-drawn queries (reference src/fri/mod.rs:261-285).
+        With a ``parallel.ShardLayout``, ``code`` is this rank's contiguous
+        block of the codeword (``layout.shard_rows``) and every rank returns
+        the same proof."""
+        if layout is None:
+            data = FriProverData.fold(code, transcript)
+            m = code.shape[0]
+        else:
+            from .parallel import to_cyclic
+            from .parallel.rounds import ShardedFriProverData
+
+            data = ShardedFriProverData.fold(to_cyclic(code.to(layout.device), layout), transcript, layout)
+            m = code.shape[0] * layout.world
+        indices = draw_query_indices(transcript, m // 2, NUM_QUERIES)
         queries = data.open_queries(indices)
         return FriProof(
             commitments=data.fold_roots(),

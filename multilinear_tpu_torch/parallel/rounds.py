@@ -1,0 +1,251 @@
+"""The sharded prover state: sumcheck tables, FRI layers and the batched
+FRI's batch layer, each a rank's cyclic block (see the package docstring).
+
+Counterpart of the JAX package's ``sharded_rounds.make_pcs_round`` /
+``make_fri_round`` and their wiring in ``pcs._device_rounds`` and
+``fri._device_fri_rounds``.  The round itself is ``pcs.DeviceRounds.round``
+unchanged: it asks the tables for the round's sums, launches the same
+``round_scalars`` kernel on every rank (the same sums, the same gathered
+root, so the same challenge), folds the tables and calls the FRI layer's
+``fold_step``.  Per round, a rank:
+
+* sums its block (``_partial_sums_kernel``), reduces the sums to canonical
+  residues and adds them over the ranks (``comm.exact_sum``: 64 bytes);
+* folds its table block and its codeword block, and hashes the new pair
+  leaves (``fold_commit_leaves``), with no traffic: in the cyclic layout the
+  pairs (i, i + m/2) and (i, i + m/4) lie on one rank.  The fold's twiddle
+  for local t is inv_g^(2^k (t W + r)): the kernel reads a power table of
+  inv_g^W, 1/W of the domain's, and r/2 arrives multiplied by inv_g^(2^k r);
+* regroups the leaf digests into its contiguous subtree and hashes it, and
+  hashes the top levels from the gathered roots (``parallel.merkle``):
+  (W - 1)/W of 32 bytes a leaf of its block, and 32 (W - 1) bytes.
+
+**Where sharding stops.**  A round runs sharded while the codeword it folds
+has at least 4 W^2 values: its q = m/4 new leaves then give each rank pair
+at least one digest to regroup (the JAX package's gate is q >= W).  Below,
+the codeword is gathered onto every rank and the rest of the chain runs
+there redundantly with the single-device code; the tables likewise once a
+rank's block is down to one row.  The tail holds a few dozen values.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+from .. import stats
+from ..batched_fri import BatchedFriProverData, _fingerprint_codes
+from ..config import LOG_BLOWUP
+from ..field import cuda_ops, limbs, ops
+from ..field.scalar import ONE, Fp, P, pow2_generator
+from ..fri import FriError, FriProverData, _pair_view, _rh_limbs
+from ..mle import factor_subtables
+from ..ntt import _pow_table, inv_gen_pows
+from ..sumcheck import PCS_DEGREE, SumcheckTables, _pack_tables_kernel, _partial_sums_kernel, identity_composition
+from ..transcript import Transcript
+from . import ShardLayout, gather_cyclic, to_cyclic
+from .merkle import ShardedMerkleTree, open_batch_many
+from .ntt import check_sizes, encode_cyclic
+
+
+def check_rows(log_n: int, layout: ShardLayout) -> None:
+    """Raise unless a 2^log_n-row prove splits over the layout's ranks: a
+    rank's block turns cyclic (n >= W^2), the encode splits, the first tree
+    regroups (m >= 2 W^2)."""
+    w = layout.log_world
+    if log_n < 2 * w:
+        raise ValueError(f"2^{log_n} rows are too few to prove over {layout.world} ranks")
+    check_sizes(log_n, w)
+
+
+def encode_rows(evals: torch.Tensor, layout: ShardLayout):
+    """A rank's contiguous block of evaluations -> (its cyclic block of them,
+    its cyclic block of the codeword)."""
+    cyc = to_cyclic(evals, layout)
+    return cyc, encode_cyclic(cyc, layout)
+
+
+def batch_to_rows(x: torch.Tensor, layout: ShardLayout) -> torch.Tensor:
+    """(B/W, m, 4) whole polynomials or codewords of this rank -> (B, m/W, 4):
+    every polynomial's cyclic rows of this rank, ONE all-to-all."""
+    Bl, m, _ = x.shape
+    W = layout.world
+    send = x.view(Bl, m // W, W, 4).permute(2, 0, 1, 3)
+    return layout.comm.all_to_all(send).reshape(W * Bl, m // W, 4)
+
+
+class ShardedTables(SumcheckTables):
+    """A rank's cyclic block of the packed (evals || delta) table; the
+    height is the whole table's."""
+
+    def __init__(self, data: torch.Tensor, height: int, layout: ShardLayout, debug_checks: bool = False):
+        super().__init__(data, height, debug_checks)
+        self.layout = layout
+        self.sharded = True
+
+    @staticmethod
+    def for_pcs(inputs: Sequence[Fp], evals: torch.Tensor, layout: ShardLayout,
+                debug_checks: bool = False) -> "ShardedTables":
+        """Tables of the claim p(inputs) = output from this rank's cyclic
+        block of the evaluations.  delta[t W + r] = eq(inputs[:N-w], t) *
+        eq(inputs[N-w:], r): the rank's factor of the last w variables is
+        one scalar, folded into the first host factor, and the local table
+        is the usual tensor product (``kron_mul``) of the others - no rank
+        builds the whole table."""
+        W, w, r = layout.world, layout.log_world, layout.rank
+        N = len(inputs)
+        if evals.shape[0] * W != 1 << N:
+            raise ValueError("need one input per variable of the MLE")
+        pts = [Fp(p) for p in inputs]
+        s = ONE
+        for j in range(N - w, N):
+            s = s * (pts[j] if (r >> (N - 1 - j)) & 1 else ONE - pts[j])
+        factors = [((ONE - p).v, p.v) for p in pts[: N - w]]
+        factors[0] = (factors[0][0] * s.v % P, factors[0][1] * s.v % P)
+        data = _pack_tables_kernel(evals, factor_subtables(factors, evals.device))
+        return ShardedTables(data, 1 << N, layout, debug_checks)
+
+    def partial_sums(self, composition=identity_composition, total_degree: int = PCS_DEGREE,
+                     aux=None) -> torch.Tensor:
+        """The round's sums over the whole table: this rank's, reduced, then
+        added over the ranks (``comm.exact_sum``); once gathered, the whole
+        table's own."""
+        if self.sharded and self.data.shape[1] < 2:
+            g = self.layout.comm.all_gather(self.data)  # (W, w+1, 1, 4): row t W + s is g[s, :, t]
+            self.data = g.permute(1, 2, 0, 3).reshape(self.data.shape[0], -1, 4).contiguous()
+            self.sharded = False
+        local = _partial_sums_kernel(self.data, total_degree, composition, aux)
+        if not self.sharded:
+            return local
+        stats.bump("rounds_sharded")
+        return self.layout.comm.exact_sum(local)
+
+
+class ShardedFriProverData(FriProverData):
+    """The FRI layers of a rank: its cyclic block of the current codeword,
+    one :class:`ShardedMerkleTree` a sharded layer, plain trees in the tail.
+    Each round appends the collective bytes this rank sent since the last
+    (or since :meth:`mark_bytes`) to ``stats``' ``round_collective_bytes``."""
+
+    def __init__(self, layout: ShardLayout, log_domain: int, debug_checks: bool = False):
+        super().__init__()
+        self.layout = layout
+        self.debug_checks = debug_checks
+        self._log_domain = log_domain
+        W, r = layout.world, layout.rank
+        inv_g = pow2_generator(log_domain).inv().v
+        dev = layout.device
+        # U[t] = inv_g^(W t) for the local folds, and inv_g^(2^k r) a round
+        self._inv_pows = _pow_table(pow(inv_g, W, P), log_domain - 1 - layout.log_world, dev)
+        self._rank_tw = limbs.pack_ints([pow(inv_g, r << k, P) for k in range(log_domain)], device=dev)
+        self.sharded = True
+        self._tail_k = 0
+        self._bytes_mark = 0
+
+    @staticmethod
+    def init(code: torch.Tensor, layout: ShardLayout, transcript: Optional[Transcript],
+             debug_checks: bool = False) -> "ShardedFriProverData":
+        """Commit to this rank's cyclic block of the initial codeword."""
+        m = code.shape[0] * layout.world
+        if m < 2 * layout.world ** 2 or m & (m - 1):
+            raise ValueError(f"a codeword of {m} values is too short to commit over {layout.world} ranks")
+        data = ShardedFriProverData(layout, m.bit_length() - 1, debug_checks)
+        data._current = code
+        data._guard(code, "codeword")
+        tree = ShardedMerkleTree.commit(_pair_view(code), layout)
+        data.trees.append(tree)
+        if transcript is not None:
+            transcript.absorb(tree.root_bytes())
+        return data
+
+    def mark_bytes(self) -> None:
+        self._bytes_mark = stats.counts().get("collective_bytes", 0)
+
+    def _record_round(self) -> None:
+        now = stats.counts().get("collective_bytes", 0)
+        stats.append("round_collective_bytes", now - self._bytes_mark)
+        self._bytes_mark = now
+
+    def _gather_tail(self, k: int) -> None:
+        self._current = gather_cyclic(self._current, self.layout)
+        self.sharded = False
+        self._tail_k = k
+        self._inv_pows = inv_gen_pows(self._log_domain - k, self._current.device)
+
+    def fold_step(self, k: int, rh: torch.Tensor) -> None:
+        """``FriProverData.fold_step`` on the rank's block, or in the tail on
+        the gathered codeword."""
+        W = self.layout.world
+        m = self._current.shape[0] * (W if self.sharded else 1)
+        blowup = 1 << LOG_BLOWUP
+        if m <= blowup:
+            return
+        if self.sharded and m < 4 * W * W:
+            self._gather_tail(k)
+        code = self._current
+        if self.sharded:
+            stats.bump("fri_folds_fused")
+            stats.bump("fri_rounds_sharded")
+            nxt, digs = cuda_ops.fold_commit_leaves(code, self._inv_pows, 1 << k, ops.mul(rh, self._rank_tw[k]))
+            self.push(nxt, ShardedMerkleTree.from_cyclic_leaves(digs, _pair_view(nxt), self.layout))
+        else:
+            # the tail's twiddles are those of its own domain
+            super().fold_step(k - self._tail_k, rh)
+        self._record_round()
+
+    @staticmethod
+    def fold(code: torch.Tensor, transcript: Transcript, layout: ShardLayout) -> "ShardedFriProverData":
+        """The standalone FRI's init + rounds (challenges drawn on the host),
+        from this rank's cyclic block of the codeword."""
+        data = ShardedFriProverData.init(code, layout, transcript)
+        data.mark_bytes()
+        for k in range(data._log_domain - LOG_BLOWUP):
+            data.fold_step(k, _rh_limbs(transcript.next_challenge(), code.device))
+            data.absorb_fold(transcript)
+        return data
+
+    def open_many(self, trees, idx_lists):
+        return open_batch_many(trees, idx_lists, self.layout)
+
+
+class ShardedBatchedFriProverData(BatchedFriProverData):
+    """The batched FRI over ranks that each hold whole polynomials: the
+    codewords are turned into row blocks once (every rank then holds all B
+    values of its rows), the batch tree and the fingerprint are per row, and
+    the first fold and every later one are the sharded plain folds."""
+
+    def __init__(self, batch_tree, fingerprint_r: Fp, codes: torch.Tensor, layout: ShardLayout,
+                 debug_checks: bool = False):
+        self.batch_tree = batch_tree
+        self.fingerprint_r = fingerprint_r
+        self.fingerprint_limbs = limbs.pack_scalar(fingerprint_r, codes.device)
+        m = codes.shape[-2] * layout.world
+        self.fri_data = ShardedFriProverData(layout, m.bit_length() - 1, debug_checks)
+        self._codes = codes
+
+    @staticmethod
+    def init(codes: torch.Tensor, transcript: Transcript, layout: ShardLayout,
+             debug_checks: bool = False) -> "ShardedBatchedFriProverData":
+        """``codes``: this rank's (B/W, m, 4) codewords.  One all-to-all to
+        row blocks, the batch commit, its root (one copy), fingerprint_r."""
+        if debug_checks and not ops.is_canonical(codes):
+            raise FriError("non-canonical field element in codewords")
+        rows = batch_to_rows(codes.contiguous(), layout)  # (B, m/W, 4)
+        B, ml, _ = rows.shape
+        tree = ShardedMerkleTree.commit(rows.view(2 * B, ml // 2, 4), layout)
+        transcript.absorb(tree.root_bytes())
+        fingerprint_r = transcript.next_challenge()
+        transcript.absorb(fingerprint_r.to_bytes())
+        return ShardedBatchedFriProverData(tree, fingerprint_r, rows, layout, debug_checks)
+
+    def batched_fold_step(self, rh: torch.Tensor) -> None:
+        """The first fold: this rank's rows' fingerprints, then the sharded
+        plain fold of round 0 (fold and pair-leaf hashes fused: the same
+        values as the single device's fold, then commit)."""
+        codes, self._codes = self._codes, None
+        if codes is None:
+            raise RuntimeError("the batched fold step runs once")
+        fri = self.fri_data
+        fri._current = _fingerprint_codes(codes, self.fingerprint_limbs)
+        fri.fold_step(0, rh)

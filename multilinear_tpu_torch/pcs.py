@@ -67,13 +67,16 @@ class PCSProof:
         evals: torch.Tensor,
         transcript: Transcript,
         config: Optional[ProverConfig] = None,
+        layout=None,
     ) -> "PCSProof":
         """``evals``: the MLE in evaluation form, a (2^n, 4) limb tensor; it
-        is moved to ``config.device`` (default: the card).
+        is moved to ``config.device`` (default: the card).  With a
+        ``parallel.ShardLayout``, ``evals`` is this rank's block
+        (``layout.shard_rows``) and every rank returns the same proof.
 
         Reference flow: src/fri/multilinear_pcs.rs:89-136.
         """
-        session = PCSProverSession(inputs, output, evals, transcript, config)
+        session = PCSProverSession(inputs, output, evals, transcript, config, layout)
         session.run_rounds()
         return session.finish()
 
@@ -228,7 +231,12 @@ class PCSProverSession:
     """Stage-by-stage PCS prover: construct (encode, commit, tables), run
     some or all rounds, finish (queries).  ``PCSProof.prove`` is the one-shot
     wrapper.  ``save`` writes the session at its round boundary to disk and
-    ``resume`` continues it, in this process or another (``checkpoint``)."""
+    ``resume`` continues it, in this process or another (``checkpoint``).
+
+    With a ``layout`` (``parallel.ShardLayout``) the session is one rank of
+    a sharded prove: ``evals`` is the rank's contiguous block of 2^n / W
+    rows, the encode, the tables and the FRI layers are the rank's
+    (``parallel.rounds``), and the rounds are the same ``DeviceRounds``."""
 
     def __init__(
         self,
@@ -237,28 +245,45 @@ class PCSProverSession:
         evals: torch.Tensor,
         transcript: Transcript,
         config: Optional[ProverConfig] = None,
+        layout=None,
     ):
         self.config = config or ProverConfig()
         self.inputs = [Fp(x) for x in inputs]
         self.output = Fp(output)
         self.n_vars = len(self.inputs)
-        if evals.dim() != 2 or evals.shape != (1 << self.n_vars, 4) or self.n_vars < 1:
+        self.layout = layout
+        ranks = 1 if layout is None else layout.world
+        if evals.dim() != 2 or evals.shape != ((1 << self.n_vars) // ranks, 4) or self.n_vars < 1:
             raise ValueError(
-                f"evals must be a (2^n, 4) limb tensor with n = len(inputs) >= 1, got {tuple(evals.shape)}"
+                f"evals must be a (2^n / ranks, 4) limb tensor with n = len(inputs) >= 1, got {tuple(evals.shape)}"
             )
         self.transcript = transcript
-        evals = evals.to(self.config.device).contiguous()
+        evals = evals.to(self.config.device if layout is None else layout.device).contiguous()
         debug = self.config.debug_checks
         if debug and not ops.is_canonical(evals):
             raise ValueError("non-canonical field element in evals")
 
-        pt = PhaseTimer(self.config.device)
-        code = encode_mle_for_fri(evals)
+        pt = PhaseTimer(str(evals.device))
+        if layout is None:
+            code = encode_mle_for_fri(evals)
+        else:
+            from .parallel import rounds as sharded
+
+            sharded.check_rows(self.n_vars, layout)
+            evals, code = sharded.encode_rows(evals, layout)
         pt.mark("encode")
         # the root is absorbed on the device by the first round
-        self.fri_data = FriProverData.init(code, None, debug_checks=debug)
+        if layout is None:
+            self.fri_data = FriProverData.init(code, None, debug_checks=debug)
+        else:
+            self.fri_data = sharded.ShardedFriProverData.init(code, layout, None, debug)
+        del code
         pt.mark("commit_l0")
-        self.tables = SumcheckTables.for_pcs(self.inputs, evals, debug_checks=debug)
+        if layout is None:
+            self.tables = SumcheckTables.for_pcs(self.inputs, evals, debug_checks=debug)
+        else:
+            self.tables = sharded.ShardedTables.for_pcs(self.inputs, evals, layout, debug)
+            self.fri_data.mark_bytes()
         self.rounds = DeviceRounds(transcript, self.n_vars, self.output, evals.device)
         pt.mark("tables")
         self.k = 0
@@ -296,6 +321,8 @@ class PCSProverSession:
         """Save the session to ``path`` (``.npz`` appended if missing) and its
         claim to ``path + ".claim"``.  Rounds launched and not replayed yet
         are replayed first (one copy), so the host transcript is current."""
+        if self.layout is not None:
+            raise NotImplementedError("a sharded session is not saved yet")
         self.pols += self.rounds.replay(self.fri_data)
         path = normalize_ckpt_path(path)
         save_pcs_state(path, self.tables, self.fri_data, self.transcript, self.k, self.rounds.running_sum(),
@@ -311,6 +338,7 @@ class PCSProverSession:
         path = normalize_ckpt_path(path)
         s = PCSProverSession.__new__(PCSProverSession)
         s.config = config or ProverConfig()
+        s.layout = None
         s.tables, s.fri_data, s.transcript, s.k, prev, s.pols = load_pcs_state(
             path, s.config.device, s.config.debug_checks)
         with open(path + ".claim") as f:

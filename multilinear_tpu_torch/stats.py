@@ -13,7 +13,13 @@ assert which one ran:
   Pease stages that went through ``butterfly2``, ``butterfly_notw`` and
   ``butterfly`` (``ntt._pease_rows``);
 * ``fri_folds_fused`` / ``fri_folds_plain`` - folds through
-  ``fold_commit_leaves`` and through ``fold_codeword`` (``fri``).
+  ``fold_commit_leaves`` and through ``fold_codeword`` (``fri``);
+* a sharded prove (``parallel``): ``rounds_sharded`` - PCS rounds (plain or
+  batched) whose sums were added over the ranks; ``fri_rounds_sharded`` -
+  folds and commits made on a rank's block (PCS or standalone FRI);
+  ``collectives``, ``collective_bytes`` and ``collective_staged_copies``
+  (``parallel.comm``); and the series ``round_collective_bytes``, the bytes
+  this rank sent in each round.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import numpy as np
 import torch
 
 _COUNTS: Counter = Counter()
+_SERIES: dict = {}
 
 
 def bump(name: str, n: int = 1) -> None:
@@ -34,8 +41,17 @@ def counts() -> dict:
     return dict(_COUNTS)
 
 
+def append(name: str, value) -> None:
+    _SERIES.setdefault(name, []).append(value)
+
+
+def series() -> dict:
+    return {k: list(v) for k, v in _SERIES.items()}
+
+
 def reset() -> None:
     _COUNTS.clear()
+    _SERIES.clear()
 
 
 def fetch(t: torch.Tensor) -> np.ndarray:
