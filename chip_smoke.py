@@ -21,9 +21,14 @@ the sumcheck of each SNARK) also runs its rounds under
 ``torch.cuda.set_sync_debug_mode("error")``, and a prove that makes more
 device->host copies than ``MAX_D2H`` fails.  The ``sharded`` phase proves
 the largest PCS over 4 and 2 ranks, the largest batched PCS over 2 ranks and
-a 2^20 standalone FRI over 4 ranks, each rank a process of this script
-(``--sharded-rank``) on card 0 over gloo (NCCL when the host has a card for
-every rank); each rank's proof must be the single-rank proof's bytes.
+a 2^20 standalone FRI over 4 ranks, the SNARK paths W1 over 4 ranks and P4
+over 2 (``System.prove_snark`` with a ``shard``), each rank a process of this
+script (``--sharded-rank``) on card 0 over gloo (NCCL when the host has a
+card for every rank); each rank's proof must be the single-rank proof's
+bytes.  Two sharded sessions are saved half way - the 2^24 PCS over 4 ranks,
+P4 in its sumcheck over 2 - and must write the single-rank session's file,
+array for array, and resume, over the ranks and on one rank, to the
+uninterrupted proof.
 
 Each phase prints one JSON line.  Near the end come one line
 ``{"kernels": [...]}`` with every kernel's launches on the driven paths
@@ -36,6 +41,7 @@ from __future__ import annotations
 
 import argparse
 import gc
+import glob
 import hashlib
 import json
 import os
@@ -1496,11 +1502,11 @@ def snark_rounds_without_sync(kind: str, trace: Trace, config: ProverConfig, wan
             "host_issue_s_per_round": issue_s / launched, "proof_equals_timed_prove": True}
 
 
-def snark_phase(dev) -> dict:
+def snark_phase(dev):
     """Each SNARK path once through ``System.prove_snark`` (timed to the end
     of the card's work) and ``System.verify_snark`` on the host, then its
     sumcheck rounds once more under the sync check.  Returns {path: proof
-    SHA-256}."""
+    SHA-256} and {path: peak device bytes}."""
     config = ProverConfig(device=str(dev))
     results = []
     for label, kind, log_n in SNARK_PATHS:
@@ -1545,7 +1551,7 @@ def snark_phase(dev) -> dict:
         clear_caches()
         torch.cuda.empty_cache()
     emit("snark", paths=results)
-    return {r["path"]: r["proof_sha256"] for r in results}
+    return {r["path"]: r["proof_sha256"] for r in results}, {r["path"]: r["peak_device_bytes"] for r in results}
 
 
 def profile_snark_rounds(dev, label: str, kind: str, log_n: int) -> None:
@@ -1581,8 +1587,28 @@ def profile_snark_rounds(dev, label: str, kind: str, log_n: int) -> None:
 # ---------------------------------------------------------------------------
 
 
+def differing_arrays(path: str, want_path: str) -> list:
+    """The keys whose arrays (or sidecar files) differ between two saved
+    sessions, a key missing from either included.  ``np.savez`` itself is
+    not byte-stable, so arrays are compared, not files."""
+    differ = []
+    with np.load(path, allow_pickle=False) as z, np.load(want_path, allow_pickle=False) as w:
+        for k in sorted(set(z.files) | set(w.files)):
+            if k not in z.files or k not in w.files:
+                differ.append(k)
+                continue
+            a, b = z[k], w[k]
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                differ.append(k)
+    for ext in (".claim", ".snark"):
+        sides = [p + ext for p in (path, want_path) if os.path.exists(p + ext)]
+        if len(sides) == 1 or (len(sides) == 2 and open(sides[0]).read() != open(sides[1]).read()):
+            differ.append(ext)
+    return differ
+
+
 def checkpoint_case(label: str, build, advance, launch_rest, resume, to_bytes, verify, want_sha256: str,
-                    fresh_process: bool = False) -> dict:
+                    fresh_process: bool = False, keep: str = None) -> dict:
     """One session saved half way and resumed: ``build`` it, ``advance`` it
     about half way, save it into a temporary directory, drop it and the
     card's cached blocks, ``resume`` it (load, trees rebuilt, transcript
@@ -1591,16 +1617,18 @@ def checkpoint_case(label: str, build, advance, launch_rest, resume, to_bytes, v
     proof must be the uninterrupted one of the same seed, byte for byte (by
     SHA-256).  The launch counts from the resume to the finished proof are
     the path ``label``.  With ``fresh_process``, the file is also resumed
-    and finished by this script in a new process (``--resume-pcs``)."""
+    and finished by this script in a new process (``--resume-pcs``).  With
+    ``keep``, the session is saved at that path (``.npz``), which outlives
+    the case."""
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "session.npz")
+        path = keep or os.path.join(tmp, "session.npz")
         session = build()
         advance(session)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         session.save(path)
         save_s = time.perf_counter() - t0
-        on_disk = sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp))
+        on_disk = sum(os.path.getsize(f) for f in glob.glob(path + "*"))
         del session
         gc.collect()
         clear_caches()
@@ -1673,12 +1701,16 @@ def resume_pcs_only(path: str) -> int:
 
 
 def checkpoint_phase(dev, pcs_log_n: int, batched_log_n: int, pcs_sha: str, batched_sha: str,
-                     snark_shas: dict) -> list:
+                     snark_shas: dict, keep_dir: str):
     """Each of the three sessions saved about half way and resumed: the PCS
     at 2^pcs_log_n (also resumed once in a fresh process), the batched PCS of
     BATCH_POLYS x 2^batched_log_n, and the SNARK paths in both phases - saved
     in the sumcheck and resumed, saved in the PCS and resumed.  Returns the
-    labels of the driven paths."""
+    labels of the driven paths and {"ckpt_pcs": ..., "ckpt_snark_pythagorean":
+    ...}: the files of the PCS and of P4 in the sumcheck, kept in
+    ``keep_dir``, whose arrays the sharded saves of the same rounds must
+    reproduce."""
+    kept = {kind: os.path.join(keep_dir, f"{kind}.npz") for kind in ("ckpt_pcs", "ckpt_snark_pythagorean")}
     config = ProverConfig(device=str(dev))
     rows = []
 
@@ -1689,7 +1721,8 @@ def checkpoint_phase(dev, pcs_log_n: int, batched_log_n: int, pcs_sha: str, batc
     rows.append(checkpoint_case(
         f"checkpoint pcs 2^{pcs_log_n}", pcs_session, lambda s: s.run_rounds(pcs_log_n // 2),
         lambda s: s.launch_rounds(), lambda path: PCSProverSession.resume(path, config), pcs_proof_to_bytes,
-        lambda b: pcs_proof_from_bytes(b).verify(Transcript()), pcs_sha, fresh_process=True))
+        lambda b: pcs_proof_from_bytes(b).verify(Transcript()), pcs_sha, fresh_process=True,
+        keep=kept["ckpt_pcs"]))
 
     def batched_session():
         polys, claim = seeded_batched_claim(BATCH_POLYS, batched_log_n, 2000 + batched_log_n, dev)
@@ -1718,13 +1751,13 @@ def checkpoint_phase(dev, pcs_log_n: int, batched_log_n: int, pcs_sha: str, batc
         rows.append(checkpoint_case(
             f"checkpoint {label} in the sumcheck", snark_session, lambda s, log_n=log_n: s.run_sumcheck_rounds(
                 log_n // 2), lambda s: s.launch_sumcheck_rounds(), resume, snark_proof_to_bytes, verify,
-            snark_shas[label]))
+            snark_shas[label], keep=kept.get("ckpt_snark_" + kind)))
         rows.append(checkpoint_case(
             f"checkpoint {label} in the pcs", snark_session, in_pcs, lambda s: s.pcs_session.launch_rounds(),
             resume, snark_proof_to_bytes, verify, snark_shas[label]))
     emit("checkpoint", cases=[{k: r[k] for k in ("path", "save_s", "resume_s", "bytes_on_disk",
                                                   "peak_device_bytes_after_resume")} for r in rows], ok=True)
-    return [r["path"] for r in rows]
+    return [r["path"] for r in rows], kept
 
 
 # ---------------------------------------------------------------------------
@@ -1821,18 +1854,32 @@ def api_phase(dev) -> None:
 # sharded proves: W ranks over torch.distributed
 # ---------------------------------------------------------------------------
 
-# Each group of rank processes: (world size, its cases as (kind, log2 size)
-# chosen by `sharded_cases`).  Every rank of a group is a process of this
+# Each group of rank processes: (world size, its cases' kinds; `sharded_phase`
+# gives each its log2 size).  Every rank of a group is a process of this
 # script (`--sharded-rank`); the ranks share card 0 over gloo unless the host
-# has a card for each rank (NCCL then, `parallel.multihost.choose`).
-SHARDED_GROUPS = ((4, ("pcs", "fri")), (2, ("pcs", "batched_pcs")))
+# has a card for each rank (NCCL then, `parallel.multihost.choose`).  The
+# SNARK kinds are "snark_" + a constraint set of SNARK_PATHS; "ckpt_" kinds
+# save a sharded session half way and resume it over the ranks.
+SHARDED_GROUPS = ((4, ("pcs", "fri", "snark_width1", "ckpt_pcs")),
+                  (2, ("pcs", "batched_pcs", "snark_pythagorean", "ckpt_snark_pythagorean")))
 SHARDED_FRI_LOG_M = 20
 SHARDED_TIMEOUT_S = 300
 
 
+def snark_path(kind: str):
+    """(label, constraint set, log2 rows) of the SNARK path of a sharded kind
+    "snark_<set>" or "ckpt_snark_<set>"."""
+    return next(p for p in SNARK_PATHS if kind.endswith("snark_" + p[1]))
+
+
 def sharded_label(kind: str, log_n: int, world: int) -> str:
+    if kind == "ckpt_pcs":
+        return f"sharded checkpoint pcs 2^{log_n}, {world} ranks: saved at round {log_n // 2}, resumed over the ranks"
+    if kind.startswith("ckpt_snark"):
+        return (f"sharded checkpoint {snark_path(kind)[0]}, {world} ranks: saved in the sumcheck at round "
+                f"{log_n // 2}, resumed over the ranks")
     what = {"pcs": f"pcs 2^{log_n}", "batched_pcs": f"batched pcs {BATCH_POLYS} x 2^{log_n}",
-            "fri": f"fri 2^{log_n}"}[kind]
+            "fri": f"fri 2^{log_n}"}.get(kind) or snark_path(kind)[0]
     return f"sharded {what}, {world} ranks"
 
 
@@ -1842,30 +1889,101 @@ def fri_codeword(log_m: int, dev) -> torch.Tensor:
     return ntt.reed_solomon(random_field(np.random.default_rng(4000 + log_m), (1 << (log_m - 1),), dev))
 
 
+def snark_block(kind: str, dev, layout):
+    """(constraints, witness layout, this rank's block of the seeded trace)
+    of a sharded SNARK kind; the whole trace is made and dropped."""
+    _, constraint_set, log_n = snark_path(kind)
+    trace = snark_trace(constraint_set, log_n, dev)
+    block = Trace.from_columns(layout.shard_rows(trace.columns_device()))
+    return (*snark_constraints(constraint_set, block.width), block)
+
+
 def sharded_inputs(kind: str, log_n: int, dev, layout):
     """(prove, to_bytes) of one case on this rank's block of the seeded input
-    (the pcs / batched phases' seeds); the whole input is made and dropped
-    before the prove."""
+    (the pcs / batched / snark phases' seeds); the whole input is made and
+    dropped before the prove."""
+    config = ProverConfig(device=str(dev))
     if kind == "pcs":
         evals, point, output = seeded_claim(log_n, 1000 + log_n, dev)
         block = layout.shard_rows(evals)
-        return (lambda: PCSProof.prove(point, output, block, Transcript(), ProverConfig(device=str(dev)), layout),
-                pcs_proof_to_bytes)
+        return (lambda: PCSProof.prove(point, output, block, Transcript(), config, layout)), pcs_proof_to_bytes
     if kind == "batched_pcs":
         polys, claim = seeded_batched_claim(BATCH_POLYS, log_n, 2000 + log_n, dev)
         block = layout.shard_batch(polys)
-        return (lambda: BatchedPCSProof.prove(claim, block, Transcript(), ProverConfig(device=str(dev)), layout),
-                batched_pcs_proof_to_bytes)
+        return (lambda: BatchedPCSProof.prove(claim, block, Transcript(), config, layout)), batched_pcs_proof_to_bytes
+    if kind.startswith("snark_"):
+        constraints, witness, block = snark_block(kind, dev, layout)
+
+        def prove():
+            transcript = Transcript()
+            return System.prover(transcript, constraints, witness, block, config, shard=layout).prove_snark(transcript)
+
+        return prove, snark_proof_to_bytes
     block = layout.shard_rows(fri_codeword(log_n, dev))
     return (lambda: fri.FriProof.prove(block, Transcript(), layout)), fri_proof_to_bytes
 
 
-def sharded_rank_main(rank: int, world: int, port: int, cases: str) -> int:
-    """``--sharded-rank``: one rank of a group; proves each case
+def resume_and_finish(kind: str, path: str, dev, layout=None):
+    """Resume the file of checkpoint case ``kind`` (over ``layout``'s ranks,
+    or on this card), run its remaining rounds and finish it: (the proof's
+    SHA-256, the resume's seconds)."""
+    config = ProverConfig(device=str(dev))
+    t0 = time.perf_counter()
+    if kind == "ckpt_pcs":
+        session = PCSProverSession.resume(path, config, layout)
+    else:
+        _, constraint_set, _ = snark_path(kind)
+        width = 1 if constraint_set == "width1" else 4
+        session = SnarkProverSession.resume(path, *snark_constraints(constraint_set, width), config, layout)
+    torch.cuda.synchronize(dev)
+    resume_s = time.perf_counter() - t0
+    if kind == "ckpt_pcs":
+        session.run_rounds()
+        blob = pcs_proof_to_bytes(session.finish())
+    else:
+        session.run_sumcheck_rounds()
+        blob = snark_proof_to_bytes(session.finish())
+    return hashlib.sha256(blob).hexdigest(), resume_s
+
+
+def sharded_checkpoint(kind: str, log_n: int, dev, layout, path: str) -> dict:
+    """A sharded session saved half way at ``path`` by every rank and
+    resumed over the same ranks: the 2^log_n PCS at round log_n / 2 (as the
+    checkpoint phase saves the single rank's), or P4 in its sumcheck at round
+    log_n / 2.  Returns the resumed proof's SHA-256, the save and resume
+    times, and on rank 0 the bytes on disk."""
+    config = ProverConfig(device=str(dev))
+    if kind == "ckpt_pcs":
+        evals, point, output = seeded_claim(log_n, 1000 + log_n, dev)
+        session = PCSProverSession(point, output, layout.shard_rows(evals), Transcript(), config, layout)
+        del evals
+        session.run_rounds(log_n // 2)
+    else:
+        constraints, witness, block = snark_block(kind, dev, layout)
+        session = SnarkProverSession(Transcript(), constraints, witness, block, config=config, shard=layout)
+        del block
+        session.run_sumcheck_rounds(log_n // 2)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    session.save(path)
+    save_s = time.perf_counter() - t0
+    del session
+    gc.collect()
+    torch.cuda.empty_cache()
+    digest, resume_s = resume_and_finish(kind, path, dev, layout)
+    row = {"proof_sha256": digest, "save_s": save_s, "resume_s": resume_s}
+    if layout.rank == 0:
+        row["bytes_on_disk"] = sum(os.path.getsize(f) for f in glob.glob(path + "*"))
+    return row
+
+
+def sharded_rank_main(rank: int, world: int, port: int, cases: str, out_dir: str) -> int:
+    """``--sharded-rank``: one rank of a group; runs each case
     (``kind:log_n``, comma-separated) on its block and prints one JSON line
     per case: the proof's SHA-256, prove_s, this process's peak device bytes,
     the collectives and their bytes, each round's bytes, the host-staged
-    copies and the kernels' launches."""
+    copies and the kernels' launches (a checkpoint case: from its build to
+    its resumed proof, its file in ``out_dir``)."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 2
@@ -1877,29 +1995,39 @@ def sharded_rank_main(rank: int, world: int, port: int, cases: str) -> int:
     try:
         for case in cases.split(","):
             kind, log_n = case.split(":")
-            prove, to_bytes = sharded_inputs(kind, int(log_n), dev, layout)
+            log_n = int(log_n)
+            if kind.startswith("ckpt_"):
+                prove, to_bytes = None, None
+            else:
+                prove, to_bytes = sharded_inputs(kind, log_n, dev, layout)
             gc.collect()
             torch.cuda.synchronize(dev)
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
             reset_counts()
             t0 = time.perf_counter()
-            proof = prove()
-            torch.cuda.synchronize(dev)
+            if prove is None:
+                extra = sharded_checkpoint(kind, log_n, dev, layout, os.path.join(out_dir, f"{kind}.npz"))
+                digest = extra.pop("proof_sha256")
+            else:
+                proof = prove()
+                torch.cuda.synchronize(dev)
+                extra, digest = {}, hashlib.sha256(to_bytes(proof)).hexdigest()
+                del proof, prove
             prove_s = time.perf_counter() - t0
             counts, series = stats.counts(), stats.series()
-            launches = launch_counts()
             print(json.dumps({
                 "sharded_case": case, "rank": rank, "world": world, "backend": layout.backend, "device": str(dev),
-                "proof_sha256": hashlib.sha256(to_bytes(proof)).hexdigest(), "prove_s": prove_s,
+                "proof_sha256": digest, "prove_s": prove_s,
                 "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
                 "collectives": counts.get("collectives", 0), "collective_bytes": counts.get("collective_bytes", 0),
                 "round_bytes": series.get("round_collective_bytes", []),
+                "sc_sum_bytes": series.get("sc_rounds_sharded_sum_bytes", []),
                 "staged_copies": counts.get("collective_staged_copies", 0),
                 "rounds_sharded": counts.get("rounds_sharded", 0),
+                "sc_rounds_sharded": counts.get("sc_rounds_sharded", 0),
                 "fri_rounds_sharded": counts.get("fri_rounds_sharded", 0),
-                "d2h_copies": counts.get("d2h_copies", 0), "launches": launches}), flush=True)
-            del proof, prove
+                "d2h_copies": counts.get("d2h_copies", 0), "launches": launch_counts(), **extra}), flush=True)
     finally:
         multihost.shutdown()
     return 0
@@ -1913,7 +2041,7 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_group(world: int, cases) -> list:
+def run_group(world: int, cases, out_dir: str) -> list:
     """Start the `world` rank processes of one group and wait for all;
     returns every rank's case lines.  A rank that fails or outlives
     SHARDED_TIMEOUT_S fails the run, and no rank outlives this call."""
@@ -1925,7 +2053,8 @@ def run_group(world: int, cases) -> list:
                 for r in range(world)]
         procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--sharded-rank", str(r),
                                    "--sharded-world", str(world), "--sharded-port", str(port),
-                                   "--sharded-cases", arg], stdout=out, stderr=err, text=True, cwd=HERE)
+                                   "--sharded-cases", arg, "--sharded-dir", out_dir],
+                                  stdout=out, stderr=err, text=True, cwd=HERE)
                  for r, (out, err) in enumerate(logs)]
         try:
             deadline = time.monotonic() + SHARDED_TIMEOUT_S
@@ -1949,58 +2078,109 @@ def run_group(world: int, cases) -> list:
     return outs
 
 
-def sharded_phase(dev, pcs_log_n: int, batched_log_n: int, pcs_sha: str, batched_sha: str,
-                  pcs_peak: int) -> list:
+def resume_on_one_rank(kind: str, path: str, dev) -> dict:
+    """A file that ranks saved, resumed and finished in this process on one
+    card: the proof's SHA-256, the resume's seconds and the launches."""
+    torch.cuda.synchronize()
+    reset_counts()
+    digest, resume_s = resume_and_finish(kind, path, dev)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    clear_caches()
+    torch.cuda.empty_cache()
+    return {"proof_sha256": digest, "resume_s": resume_s, "launches": launches}
+
+
+def sharded_phase(dev, pcs_log_n: int, batched_log_n: int, pcs_sha: str, batched_sha: str, pcs_peak: int,
+                  snark_shas: dict, snark_peaks: dict, single_files: dict) -> list:
     """The PCS at 2^pcs_log_n over 4 and 2 ranks, the batched PCS of
     BATCH_POLYS x 2^batched_log_n over 2 ranks (a rank's polynomials whole),
-    a standalone FRI of 2^SHARDED_FRI_LOG_M values over 4 ranks: each rank's
-    proof must be the single-rank proof of this run, and at 4 ranks each
-    rank's peak device bytes at most half the single-rank PCS prove's.  One
-    JSON line per case; returns the labels of the driven paths."""
+    a standalone FRI of 2^SHARDED_FRI_LOG_M values over 4 ranks, the SNARK
+    paths W1 over 4 ranks and P4 over 2 (the trace's rows a rank): each
+    rank's proof must be the single-rank proof of this run, its device->host
+    copies within MAX_D2H, and at 4 ranks each rank's peak device bytes at
+    most half the single-rank PCS prove's.  The checkpoint cases - the PCS
+    saved at round pcs_log_n / 2 over 4 ranks, P4 saved in its sumcheck over
+    2 - must write the arrays of the single-rank file of the checkpoint
+    phase (``single_files``), and resume, over the ranks and here on one
+    rank, to the uninterrupted proof.  One JSON line per case; returns the
+    labels of the driven paths."""
     code = fri_codeword(SHARDED_FRI_LOG_M, dev)
     fri_sha = hashlib.sha256(fri_proof_to_bytes(fri.FriProof.prove(code, Transcript()))).hexdigest()
     del code
     clear_caches()
     torch.cuda.empty_cache()
     single = {"pcs": (pcs_log_n, pcs_sha), "batched_pcs": (batched_log_n, batched_sha),
-              "fri": (SHARDED_FRI_LOG_M, fri_sha)}
+              "fri": (SHARDED_FRI_LOG_M, fri_sha), "ckpt_pcs": (pcs_log_n, pcs_sha)}
+    for label, constraint_set, log_n in SNARK_PATHS:
+        single["snark_" + constraint_set] = single["ckpt_snark_" + constraint_set] = (log_n, snark_shas[label])
     labels = []
-    for world, kinds in SHARDED_GROUPS:
-        cases = [(k, single[k][0]) for k in kinds]
-        t0 = time.perf_counter()
-        outs = run_group(world, cases)
-        group_s = time.perf_counter() - t0
-        for i, (kind, log_n) in enumerate(cases):
-            rows = [o[i] for o in outs]
-            want = single[kind][1]
-            shas = {row["proof_sha256"] for row in rows}
-            if shas != {want}:
-                raise RuntimeError(f"{sharded_label(kind, log_n, world)}: proofs {sorted(shas)} against the "
-                                   f"single rank's {want}")
-            peaks = [row["peak_device_bytes"] for row in rows]
-            # the memory gate holds at the driven size, where the data and not
-            # the fixed tables and buffers set the peak
-            if kind == "pcs" and world == 4 and pcs_log_n == PCS_LOG_SIZES[-1] and max(peaks) > pcs_peak / 2:
-                raise RuntimeError(f"a rank of the 4-rank PCS peaked at {max(peaks)} device bytes, over half of "
-                                   f"the single rank's {pcs_peak}")
-            copies = max(row["d2h_copies"] for row in rows)
-            if kind in MAX_D2H and copies > MAX_D2H[kind]:
-                raise RuntimeError(f"a rank of {sharded_label(kind, log_n, world)} made {copies} device->host copies")
-            if min(row["rounds_sharded"] + row["fri_rounds_sharded"] for row in rows) == 0:
-                raise RuntimeError(f"{sharded_label(kind, log_n, world)} ran no sharded round")
-            label = sharded_label(kind, log_n, world)
-            labels.append(label)
-            PATH_LAUNCHES[label] = {k: sum(row["launches"][k] for row in rows) for k in rows[0]["launches"]}
-            emit("sharded", case=label, world=world, backend=rows[0]["backend"], proof_sha256=want,
-                 equals_single_rank=True, prove_s_per_rank=[row["prove_s"] for row in rows],
-                 peak_device_bytes_per_rank=peaks,
-                 single_rank_peak_device_bytes=pcs_peak if kind == "pcs" else None,
-                 collectives_per_prove=[row["collectives"] for row in rows],
-                 collective_bytes_per_rank=[row["collective_bytes"] for row in rows],
-                 bytes_per_round_rank0=rows[0]["round_bytes"],
-                 staged_copies_per_rank=[row["staged_copies"] for row in rows],
-                 rounds_sharded=rows[0]["rounds_sharded"], fri_rounds_sharded=rows[0]["fri_rounds_sharded"],
-                 d2h_copies_per_rank=[row["d2h_copies"] for row in rows], group_wall_s=group_s)
+    with tempfile.TemporaryDirectory() as files:
+        for world, kinds in SHARDED_GROUPS:
+            cases = [(k, single[k][0]) for k in kinds]
+            t0 = time.perf_counter()
+            outs = run_group(world, cases, files)
+            group_s = time.perf_counter() - t0
+            for i, (kind, log_n) in enumerate(cases):
+                rows = [o[i] for o in outs]
+                label = sharded_label(kind, log_n, world)
+                want = single[kind][1]
+                shas = {row["proof_sha256"] for row in rows}
+                if shas != {want}:
+                    raise RuntimeError(f"{label}: proofs {sorted(shas)} against the single rank's {want}")
+                peaks = [row["peak_device_bytes"] for row in rows]
+                # the memory gate holds at the driven size, where the data and
+                # not the fixed tables and buffers set the peak
+                if kind == "pcs" and world == 4 and pcs_log_n == PCS_LOG_SIZES[-1] and max(peaks) > pcs_peak / 2:
+                    raise RuntimeError(f"a rank of the 4-rank PCS peaked at {max(peaks)} device bytes, over half "
+                                       f"of the single rank's {pcs_peak}")
+                copies = max(row["d2h_copies"] for row in rows)
+                if kind.startswith("snark_"):
+                    limit = MAX_D2H["pcs" if kind == "snark_width1" else "batched_pcs"] + MAX_D2H["snark"]
+                else:
+                    limit = MAX_D2H.get(kind)
+                if limit is not None and copies > limit:
+                    raise RuntimeError(f"a rank of {label} made {copies} device->host copies, at most {limit}")
+                if min(row["rounds_sharded"] + row["fri_rounds_sharded"] for row in rows) == 0 or (
+                        "snark" in kind and min(row["sc_rounds_sharded"] for row in rows) == 0):
+                    raise RuntimeError(f"{label} ran no sharded round of a kind it has")
+                labels.append(label)
+                PATH_LAUNCHES[label] = {k: sum(row["launches"][k] for row in rows) for k in rows[0]["launches"]}
+                line = dict(case=label, world=world, backend=rows[0]["backend"], proof_sha256=want,
+                            equals_single_rank=True, prove_s_per_rank=[row["prove_s"] for row in rows],
+                            peak_device_bytes_per_rank=peaks,
+                            collectives_per_prove=[row["collectives"] for row in rows],
+                            collective_bytes_per_rank=[row["collective_bytes"] for row in rows],
+                            bytes_per_round_rank0=rows[0]["round_bytes"],
+                            staged_copies_per_rank=[row["staged_copies"] for row in rows],
+                            rounds_sharded=rows[0]["rounds_sharded"], sc_rounds_sharded=rows[0]["sc_rounds_sharded"],
+                            fri_rounds_sharded=rows[0]["fri_rounds_sharded"],
+                            d2h_copies_per_rank=[row["d2h_copies"] for row in rows], group_wall_s=group_s)
+                if kind == "pcs":
+                    line["single_rank_peak_device_bytes"] = pcs_peak
+                if kind.startswith("snark_"):
+                    line["single_rank_peak_device_bytes"] = snark_peaks[snark_path(kind)[0]]
+                    line["sum_bytes_per_sumcheck_round_rank0"] = sorted(set(rows[0]["sc_sum_bytes"]))
+                    line["max_d2h"] = limit
+                if not kind.startswith("ckpt_"):
+                    emit("sharded", **line)
+                    continue
+                # a checkpoint case: the file against the single rank's, then
+                # resumed here on one rank
+                differ = differing_arrays(os.path.join(files, f"{kind}.npz"), single_files[kind])
+                if differ:
+                    raise RuntimeError(f"{label}: the saved file's {differ} differ from the single rank's")
+                one = resume_on_one_rank(kind, os.path.join(files, f"{kind}.npz"), dev)
+                if one["proof_sha256"] != want:
+                    raise RuntimeError(f"{label}: resumed on one rank, proof {one['proof_sha256']} against {want}")
+                one_label = label.replace("resumed over the ranks", "resumed on one rank")
+                labels.append(one_label)
+                PATH_LAUNCHES[one_label] = one["launches"]
+                emit("sharded_checkpoint", **line, arrays_equal_single_rank_file=True,
+                     bytes_on_disk=rows[0]["bytes_on_disk"],
+                     save_s_per_rank=[row["save_s"] for row in rows],
+                     resume_s_per_rank=[row["resume_s"] for row in rows],
+                     resumed_on_one_rank={"proof_sha256": one["proof_sha256"], "resume_s": one["resume_s"]})
     return labels
 
 
@@ -2134,9 +2314,11 @@ def main() -> int:
     ap.add_argument("--sharded-world", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--sharded-port", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--sharded-cases", help=argparse.SUPPRESS)
+    ap.add_argument("--sharded-dir", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.sharded_rank is not None:
-        return sharded_rank_main(args.sharded_rank, args.sharded_world, args.sharded_port, args.sharded_cases)
+        return sharded_rank_main(args.sharded_rank, args.sharded_world, args.sharded_port, args.sharded_cases,
+                                 args.sharded_dir)
     if args.resume_pcs:
         return resume_pcs_only(args.resume_pcs)
     log_sizes = sorted(int(x) for x in args.log_sizes.split(","))
@@ -2183,11 +2365,14 @@ def main() -> int:
     routes_phase(dev, log_sizes[-1], batched_sizes[-1])
     pcs_sha, pcs_peak = pcs_phase(dev, log_sizes)
     batched_sha = batched_pcs_phase(dev, batched_sizes)
-    snark_shas = snark_phase(dev)
-    checkpoint_paths = checkpoint_phase(dev, log_sizes[-1], batched_sizes[-1], pcs_sha, batched_sha, snark_shas)
-    degree_phase(dev)
-    api_phase(dev)
-    sharded_paths = sharded_phase(dev, log_sizes[-1], batched_sizes[-1], pcs_sha, batched_sha, pcs_peak)
+    snark_shas, snark_peaks = snark_phase(dev)
+    with tempfile.TemporaryDirectory() as kept:
+        checkpoint_paths, single_files = checkpoint_phase(dev, log_sizes[-1], batched_sizes[-1], pcs_sha,
+                                                          batched_sha, snark_shas, kept)
+        degree_phase(dev)
+        api_phase(dev)
+        sharded_paths = sharded_phase(dev, log_sizes[-1], batched_sizes[-1], pcs_sha, batched_sha, pcs_peak,
+                                      snark_shas, snark_peaks, single_files)
     if args.profile:
         config = ProverConfig(device=str(dev))
         evals, point, output = seeded_claim(log_sizes[-1], 1000 + log_sizes[-1], dev)

@@ -30,7 +30,7 @@ from typing import List, Optional
 import torch
 
 from .batched_fri import BatchedFriProof, BatchedFriProverData, _fingerprint_codes, fingerprint
-from .checkpoint import load_batched_pcs_state, normalize_ckpt_path, save_batched_pcs_state
+from .checkpoint import barrier, is_writer, load_batched_pcs_state, normalize_ckpt_path, save_batched_pcs_state
 from .config import LOG_BLOWUP, NUM_QUERIES, ProverConfig
 from .field import ops
 from .field.scalar import Fp
@@ -75,8 +75,8 @@ class BatchedPCSProof:
         """``polys``: (B, 2^n, 4) limb tensor of B MLEs in evaluation form;
         it is moved to ``config.device`` (default: the card).  With a
         ``parallel.ShardLayout``, ``polys`` is this rank's B/W whole
-        polynomials (``layout.shard_batch``) and every rank returns the same
-        proof.
+        polynomials (``layout.shard_batch``) or its rows of all B
+        (``layout.shard_rows``), and every rank returns the same proof.
 
         Reference flow: src/fri/batched_pcs.rs:36-186.
         """
@@ -129,10 +129,21 @@ class BatchedPCSProverSession:
     ``save`` / ``resume`` as in the plain PCS session.
 
     With a ``layout`` (``parallel.ShardLayout``) the session is one rank of
-    a batch-sharded prove: ``polys`` is the rank's B/W whole polynomials,
-    encoded here with no traffic; the codewords and the polynomials then
-    turn into row blocks (one all-to-all each), and the batch tree, the
-    fingerprints and every round are the rank's rows (``parallel.rounds``)."""
+    a sharded prove, in one of two modes that the block's shape tells apart
+    (for W > 1 they never coincide):
+
+    * batch-sharded, ``polys`` (B/W, 2^n, 4): the rank's whole polynomials,
+      encoded here with no traffic; the codewords and the polynomials then
+      turn into row blocks (one all-to-all each);
+    * row-sharded, ``polys`` (B, 2^n/W, 4): the rank's contiguous rows of
+      every polynomial, turned cyclic (one all-to-all) and encoded by the
+      sharded encode in ONE batched pass, whose two all-to-alls carry all B
+      columns.  ``cyclic``: the rows are already the rank's cyclic block, as
+      a SNARK's trace sumcheck left its columns, and that first exchange is
+      skipped.
+
+    Either way the batch tree, the fingerprints and every round are then the
+    rank's rows (``parallel.rounds``)."""
 
     def __init__(
         self,
@@ -141,24 +152,28 @@ class BatchedPCSProverSession:
         transcript: Transcript,
         config: Optional[ProverConfig] = None,
         layout=None,
+        cyclic: bool = False,
     ):
         self.config = config or ProverConfig()
         self.claim = BatchedPCSClaim([Fp(x) for x in claim.inputs], [Fp(x) for x in claim.outputs])
         self.n_vars = len(self.claim.inputs)
         self.layout = layout
-        B = len(self.claim.outputs)
-        ranks = 1 if layout is None else layout.world
-        if B % ranks:
-            raise ValueError(f"a batch of {B} polynomials does not split evenly over {ranks} ranks")
-        if (polys.dim() != 3 or polys.shape[1:] != (1 << self.n_vars, 4) or self.n_vars < 1
-                or polys.shape[0] != B // ranks or polys.shape[0] < 1):
-            raise ValueError(
-                "polys must be a (B / ranks, 2^n, 4) limb tensor with n = len(inputs) >= 1 and "
-                f"B = len(outputs) >= 1, got {tuple(polys.shape)}"
-            )
-        if layout is not None:
+        B, n = len(self.claim.outputs), 1 << self.n_vars
+        if layout is None:
+            by_rows = False
+            if polys.dim() != 3 or polys.shape != (B, n, 4) or self.n_vars < 1 or B < 1:
+                raise ValueError("polys must be a (B, 2^n, 4) limb tensor with n = len(inputs) >= 1 and "
+                                 f"B = len(outputs) >= 1, got {tuple(polys.shape)}")
+        else:
             from .parallel import rounds as sharded
 
+            W = layout.world
+            by_rows = tuple(polys.shape) == (B, n // W, 4)
+            by_batch = B % W == 0 and tuple(polys.shape) == (B // W, n, 4)
+            if not (by_rows or by_batch) or self.n_vars < 1 or B < 1:
+                raise ValueError(f"over {W} ranks polys must be (B / {W}, 2^n, 4) whole polynomials (a batch "
+                                 f"that splits evenly) or (B, 2^n / {W}, 4) rows, with n = len(inputs) >= 1 and "
+                                 f"B = len(outputs) >= 1; got {tuple(polys.shape)} for B = {B}, n = {self.n_vars}")
             sharded.check_rows(self.n_vars, layout)
         self.transcript = transcript
         polys = polys.to(self.config.device if layout is None else layout.device).contiguous()
@@ -169,13 +184,20 @@ class BatchedPCSProverSession:
         pt = PhaseTimer(self.config.device)
         # RS-encode every polynomial in one batched pass (coeffs
         # bit-reversed, Q8)
-        codes = encode_mle_for_fri(polys)
+        if by_rows:
+            if not cyclic:
+                polys = sharded.to_cyclic(polys, layout)
+            codes = sharded.encode_cyclic(polys, layout)
+        else:
+            codes = encode_mle_for_fri(polys)
         pt.mark("encode")
         self.claim.absorb_into(transcript)
         if layout is None:
             self.bfri = BatchedFriProverData.init(codes, transcript, debug_checks=debug)
         else:
-            self.bfri = sharded.ShardedBatchedFriProverData.init(codes, transcript, layout, debug)
+            rows = codes if by_rows else sharded.batch_to_rows(codes, layout)
+            self.bfri = sharded.ShardedBatchedFriProverData.init(rows, transcript, layout, debug)
+            del rows
         del codes
         pt.mark("commit_batch")
         # eval-wise Horner RLC of the B MLEs into one sumcheck polynomial
@@ -183,7 +205,8 @@ class BatchedPCSProverSession:
             rlc_evals = _fingerprint_codes(polys, self.bfri.fingerprint_limbs)
             self.tables = SumcheckTables.for_pcs(self.claim.inputs, rlc_evals, debug_checks=debug)
         else:
-            rlc_evals = _fingerprint_codes(sharded.batch_to_rows(polys, layout), self.bfri.fingerprint_limbs)
+            rows = polys if by_rows else sharded.batch_to_rows(polys, layout)
+            rlc_evals = _fingerprint_codes(rows, self.bfri.fingerprint_limbs)
             self.tables = sharded.ShardedTables.for_pcs(self.claim.inputs, rlc_evals, layout, debug)
             self.bfri.fri_data.mark_bytes()
         self.rounds = DeviceRounds(transcript, self.n_vars,
@@ -232,30 +255,42 @@ class BatchedPCSProverSession:
     def save(self, path: str) -> None:
         """Save the session to ``path`` (``.npz`` appended if missing) and its
         claim to ``path + ".claim"``.  Rounds launched and not replayed yet -
-        round 0 too, which the constructor launched - are replayed first."""
-        if self.layout is not None:
-            raise NotImplementedError("a sharded session is not saved yet")
+        round 0 too, which the constructor launched - are replayed first.  A
+        sharded session, in either mode, is saved as in
+        ``pcs.PCSProverSession.save``: the single-rank file, written by rank
+        0 after the blocks are gathered."""
+        self._write(path)
+        barrier(self.layout)
+
+    def _write(self, path: str) -> None:
+        """``save`` up to its barrier."""
         self.pols += self.rounds.replay(self.bfri.fri_data)
         path = normalize_ckpt_path(path)
         save_batched_pcs_state(path, self.tables, self.bfri, self.transcript, self.k, self.rounds.running_sum(),
-                               self.pols)
-        with open(path + ".claim", "w") as f:
-            json.dump({"inputs": [x.v for x in self.claim.inputs], "outputs": [x.v for x in self.claim.outputs]}, f)
+                               self.pols, self.layout)
+        if is_writer(self.layout):
+            with open(path + ".claim", "w") as f:
+                json.dump({"inputs": [x.v for x in self.claim.inputs],
+                           "outputs": [x.v for x in self.claim.outputs]}, f)
 
     @staticmethod
-    def resume(path: str, config: Optional[ProverConfig] = None) -> "BatchedPCSProverSession":
+    def resume(path: str, config: Optional[ProverConfig] = None, layout=None) -> "BatchedPCSProverSession":
         """The session saved at ``path``, on ``config.device`` (default: the
-        card), the batch tree and the fold trees rebuilt."""
+        card), the batch tree and the fold trees rebuilt.  With a ``layout``,
+        every rank calls it and keeps its rows (after round 0 both modes hold
+        the same row blocks), as ``pcs.PCSProverSession.resume``."""
         path = normalize_ckpt_path(path)
         s = BatchedPCSProverSession.__new__(BatchedPCSProverSession)
         s.config = config or ProverConfig()
-        s.layout = None
+        s.layout = layout
         s.tables, s.bfri, s.transcript, s.k, prev, s.pols = load_batched_pcs_state(
-            path, s.config.device, s.config.debug_checks)
+            path, s.config.device, s.config.debug_checks, layout)
         with open(path + ".claim") as f:
             claim = json.load(f)
         s.claim = BatchedPCSClaim([Fp(int(v)) for v in claim["inputs"]], [Fp(int(v)) for v in claim["outputs"]])
         s.n_vars = len(s.claim.inputs)
         s.rounds = DeviceRounds(s.transcript, s.n_vars, prev, s.tables.data.device)
         s.rounds.roots_absorbed = s.k - 1  # round 0 absorbed no fold root, round j >= 1 that of tree j - 1
+        if layout is not None:
+            s.bfri.fri_data.mark_bytes()
         return s

@@ -26,6 +26,14 @@ milliseconds on the card.  Resume rebuilds every tree and checks the root it
 reaches against the saved one (``merkle.MerkleRootMismatch`` on a
 difference): a damaged payload cannot resume.  Uniform 128-bit residues do
 not compress, so the arrays are stored as they are.
+
+A sharded session (``parallel.ShardLayout``) writes the file the
+single-rank session writes at the same round: every rank's cyclic blocks of
+the tables and of each layer's payload are gathered in natural order (the
+counterpart of the JAX package's gathering ``np.asarray``), rank 0 writes
+it - on many hosts, to rank 0's disk - and every rank returns after a
+barrier.  Any such file resumes on one rank, or over W ranks with a layout:
+each rank then keeps its cyclic blocks and rebuilds its subtrees.
 """
 
 from __future__ import annotations
@@ -59,6 +67,25 @@ def _device(arr: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
 
+def is_writer(layout) -> bool:
+    """Whether this process writes the files of a save: a single rank, or
+    rank 0 of a sharded session."""
+    return layout is None or layout.rank == 0
+
+
+def barrier(layout) -> None:
+    """A sharded save returns on every rank once rank 0 has written."""
+    if layout is not None:
+        layout.comm.barrier()
+
+
+def _put(store: dict, key: str, t: torch.Tensor, layout) -> None:
+    """``t``, whole and in natural order, under ``key``: copied to the host
+    by the writing rank only."""
+    if is_writer(layout):
+        store[key] = stats.fetch(t)
+
+
 def pols_to_meta(pols: List[SumcheckPoly]) -> list:
     return [[c.v for c in p.nonzero_coeffs] for p in pols]
 
@@ -81,62 +108,77 @@ def _load_transcript(z, meta) -> Transcript:
     return Transcript.import_state([int(x) for x in z["tr_st"]], z["tr_buf"].tobytes(), meta["tr_total"])
 
 
-def _store_tables(store: dict, meta: dict, tables: SumcheckTables) -> None:
+def _store_tables(store: dict, meta: dict, tables: SumcheckTables, layout) -> None:
     meta["tables_height"] = tables.height
-    store["sc_data"] = stats.fetch(tables.data)
+    _put(store, "sc_data", tables.gathered(), layout)
 
 
-def _load_tables(z, meta, device, debug_checks: bool) -> SumcheckTables:
-    return SumcheckTables(_device(z["sc_data"], device), meta["tables_height"], debug_checks)
+def _load_tables(z, meta, device, debug_checks: bool, layout=None,
+                 counter: str = "rounds_sharded") -> SumcheckTables:
+    if layout is None:
+        return SumcheckTables(_device(z["sc_data"], device), meta["tables_height"], debug_checks)
+    from .parallel.rounds import ShardedTables
+
+    return ShardedTables.from_whole(torch.from_numpy(z["sc_data"]), meta["tables_height"], layout, debug_checks,
+                                    counter)
 
 
-def _store_tree(store: dict, key: str, tree: MerkleTree) -> str:
-    """The tree's leaf payload under ``key``; returns its root as hex."""
-    store[key] = stats.fetch(tree.leaf_columns)
+def _store_tree(store: dict, key: str, tree: MerkleTree, layout) -> str:
+    """The tree's whole leaf payload under ``key``; returns its root as hex."""
+    _put(store, key, tree.gathered_leaf_columns(), layout)
     return tree.root_bytes().hex()
 
 
-def _store_fri(store: dict, meta: dict, fri_data: FriProverData) -> None:
+def _store_fri(store: dict, meta: dict, fri_data: FriProverData, layout) -> None:
     if fri_data.final is not None:
         raise RuntimeError("the last fold's elements are not replayed yet: replay before saving")
     meta["fri_log_domain"] = fri_data._log_domain
     meta["fri_last_element"] = None if fri_data.last_element is None else fri_data.last_element.v
-    meta["fri_roots"] = [_store_tree(store, f"tree{i}_cols", t) for i, t in enumerate(fri_data.trees)]
+    meta["fri_roots"] = [_store_tree(store, f"tree{i}_cols", t, layout) for i, t in enumerate(fri_data.trees)]
 
 
-def _load_fri(z, meta, device, debug_checks: bool) -> FriProverData:
+def _load_fri(z, meta, device, debug_checks: bool, layout=None) -> FriProverData:
     """The FRI state with its trees rebuilt from their payloads.  While the
     chain runs, the current codeword is the newest tree's payload."""
+    roots = [bytes.fromhex(r) for r in meta["fri_roots"]]
+    last = None if meta["fri_last_element"] is None else Fp(int(meta["fri_last_element"]))
+    if layout is not None:
+        from .parallel.rounds import ShardedFriProverData
+
+        return ShardedFriProverData.resume([torch.from_numpy(z[f"tree{i}_cols"]) for i in range(len(roots))],
+                                           roots, meta["fri_log_domain"], last, layout, debug_checks)
     fri_data = FriProverData()
     fri_data.debug_checks = debug_checks
     fri_data._log_domain = meta["fri_log_domain"]
     fri_data._inv_pows = inv_gen_pows(fri_data._log_domain, device)
-    roots = [bytes.fromhex(r) for r in meta["fri_roots"]]
     fri_data.trees = MerkleTree.rebuild([_device(z[f"tree{i}_cols"], device) for i in range(len(roots))], roots)
-    if meta["fri_last_element"] is not None:
-        fri_data.last_element = Fp(int(meta["fri_last_element"]))
+    if last is not None:
+        fri_data.last_element = last
     elif fri_data.trees:
         fri_data._current = fri_data.trees[-1].leaf_columns.reshape(-1, 4)
     return fri_data
 
 
-def _store_core(store, meta, tables, fri_data, transcript, round_k, previous_sum, pols) -> None:
+def _store_core(store, meta, tables, fri_data, transcript, round_k, previous_sum, pols, layout) -> None:
     meta["round_k"] = round_k
     meta["previous_sum"] = Fp(previous_sum).v
     meta["pols"] = pols_to_meta(pols)
     _store_transcript(store, meta, transcript)
-    _store_tables(store, meta, tables)
-    _store_fri(store, meta, fri_data)
+    _store_tables(store, meta, tables, layout)
+    _store_fri(store, meta, fri_data, layout)
 
 
-def _load_core(z, meta, device, debug_checks: bool):
-    return (_load_tables(z, meta, device, debug_checks), _load_fri(z, meta, device, debug_checks),
+def _load_core(z, meta, device, debug_checks: bool, layout=None):
+    return (_load_tables(z, meta, device, debug_checks, layout), _load_fri(z, meta, device, debug_checks, layout),
             _load_transcript(z, meta), meta["round_k"], Fp(int(meta["previous_sum"])), pols_from_meta(meta["pols"]))
 
 
-def _finalize(path: str, store: dict, meta: dict) -> None:
-    store["meta"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
-    np.savez(normalize_ckpt_path(path), **store)
+def _finalize(path: str, store: dict, meta: dict, layout) -> None:
+    """Write the file (the writing rank only; the caller's sidecars and
+    :func:`barrier` follow)."""
+    if is_writer(layout):
+        store["meta"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+        np.savez(normalize_ckpt_path(path), **store)
 
 
 @contextlib.contextmanager
@@ -161,45 +203,57 @@ def checkpoint_kind(path: str) -> str:
 
 
 def save_pcs_state(path: str, tables: SumcheckTables, fri_data: FriProverData, transcript: Transcript,
-                   round_k: int, previous_sum: Fp, pols: List[SumcheckPoly]) -> None:
+                   round_k: int, previous_sum: Fp, pols: List[SumcheckPoly], layout=None) -> None:
+    """With a ``layout``, a collective: every rank calls it, rank 0 writes."""
     store, meta = {}, {"kind": "pcs"}
-    _store_core(store, meta, tables, fri_data, transcript, round_k, previous_sum, pols)
-    _finalize(path, store, meta)
+    _store_core(store, meta, tables, fri_data, transcript, round_k, previous_sum, pols, layout)
+    _finalize(path, store, meta, layout)
 
 
-def load_pcs_state(path: str, device="cpu", debug_checks: bool = False):
+def load_pcs_state(path: str, device="cpu", debug_checks: bool = False, layout=None):
     """Returns (tables, fri_data, transcript, round_k, previous_sum, pols),
-    the tensors on ``device`` and the trees rebuilt."""
+    the tensors on ``device`` and the trees rebuilt; with a ``layout``, this
+    rank's share on the layout's device (a collective)."""
     with _open(path, "pcs") as (z, meta):
-        return _load_core(z, meta, device, debug_checks)
+        return _load_core(z, meta, device, debug_checks, layout)
 
 
 # -- batched PCS -----------------------------------------------------------------
 
 
 def save_batched_pcs_state(path: str, tables: SumcheckTables, bfri, transcript: Transcript, round_k: int,
-                           previous_sum: Fp, pols: List[SumcheckPoly]) -> None:
+                           previous_sum: Fp, pols: List[SumcheckPoly], layout=None) -> None:
     """``bfri``: a ``BatchedFriProverData`` after round 0 (its batched fold
     has consumed the codewords; the batch tree's payload is what is left of
-    them)."""
+    them).  With a ``layout``, a collective: every rank calls it, rank 0
+    writes."""
     store, meta = {}, {"kind": "batched_pcs"}
-    _store_core(store, meta, tables, bfri.fri_data, transcript, round_k, previous_sum, pols)
+    _store_core(store, meta, tables, bfri.fri_data, transcript, round_k, previous_sum, pols, layout)
     meta["fingerprint_r"] = bfri.fingerprint_r.v
-    meta["batch_root"] = _store_tree(store, "btree_cols", bfri.batch_tree)
-    _finalize(path, store, meta)
+    meta["batch_root"] = _store_tree(store, "btree_cols", bfri.batch_tree, layout)
+    _finalize(path, store, meta, layout)
 
 
-def load_batched_pcs_state(path: str, device="cpu", debug_checks: bool = False):
-    """Returns (tables, bfri, transcript, round_k, previous_sum, pols)."""
+def load_batched_pcs_state(path: str, device="cpu", debug_checks: bool = False, layout=None):
+    """Returns (tables, bfri, transcript, round_k, previous_sum, pols); with a
+    ``layout``, this rank's share in the row layout (a collective)."""
     with _open(path, "batched_pcs") as (z, meta):
-        tables, fri_data, transcript, round_k, prev, pols = _load_core(z, meta, device, debug_checks)
-        bfri = BatchedFriProverData.__new__(BatchedFriProverData)
-        bfri.batch_tree = MerkleTree.rebuild([_device(z["btree_cols"], device)],
-                                             [bytes.fromhex(meta["batch_root"])])[0]
-        bfri.fingerprint_r = Fp(int(meta["fingerprint_r"]))
-        bfri.fingerprint_limbs = limbs.pack_scalar(bfri.fingerprint_r, device)
-        bfri.fri_data = fri_data
-        bfri._codes = None  # round 0 consumed them before any save
+        tables, fri_data, transcript, round_k, prev, pols = _load_core(z, meta, device, debug_checks, layout)
+        fingerprint_r = Fp(int(meta["fingerprint_r"]))
+        root = [bytes.fromhex(meta["batch_root"])]
+        if layout is None:
+            bfri = BatchedFriProverData.__new__(BatchedFriProverData)
+            bfri.batch_tree = MerkleTree.rebuild([_device(z["btree_cols"], device)], root)[0]
+            bfri.fingerprint_r = fingerprint_r
+            bfri.fingerprint_limbs = limbs.pack_scalar(fingerprint_r, device)
+            bfri.fri_data = fri_data
+            bfri._codes = None  # round 0 consumed them before any save
+        else:
+            from .parallel.merkle import ShardedMerkleTree
+            from .parallel.rounds import ShardedBatchedFriProverData
+
+            tree = ShardedMerkleTree.commit(layout.cyclic_rows(torch.from_numpy(z["btree_cols"])), layout)
+            bfri = ShardedBatchedFriProverData(MerkleTree.check_roots([tree], root)[0], fingerprint_r, None, fri_data)
         return tables, bfri, transcript, round_k, prev, pols
 
 
@@ -209,9 +263,11 @@ def load_batched_pcs_state(path: str, device="cpu", debug_checks: bool = False):
 def save_snark_sumcheck_state(path: str, trace_columns: torch.Tensor, tables: SumcheckTables,
                               transcript: Transcript, round_k: int, previous_sum: Fp, pols: List[SumcheckPoly],
                               randoms: List[Fp], challenges, sum_value: Fp,
-                              outputs: Optional[List[Fp]] = None) -> None:
+                              outputs: Optional[List[Fp]] = None, layout=None) -> None:
     """``challenges``: the ``system.ChallengeSet``; ``outputs``: the columns
-    at the randoms once the last round is replayed, else None."""
+    at the randoms once the last round is replayed, else None.  With a
+    ``layout``, a collective: ``trace_columns`` is the whole trace (the
+    caller gathers it), every rank calls it, rank 0 writes."""
     store, meta = {}, {"kind": "snark_sumcheck"}
     meta["round_k"] = round_k
     meta["previous_sum"] = Fp(previous_sum).v
@@ -222,18 +278,23 @@ def save_snark_sumcheck_state(path: str, trace_columns: torch.Tensor, tables: Su
     meta["challenges"] = {"row": [c.v for c in challenges.row], "trace": [c.v for c in challenges.trace],
                           "constraint": [c.v for c in challenges.constraint]}
     _store_transcript(store, meta, transcript)
-    _store_tables(store, meta, tables)
-    store["trace_cols"] = stats.fetch(trace_columns)
-    _finalize(path, store, meta)
+    _store_tables(store, meta, tables, layout)
+    _put(store, "trace_cols", trace_columns, layout)
+    _finalize(path, store, meta, layout)
 
 
-def load_snark_sumcheck_state(path: str, device="cpu", debug_checks: bool = False):
+def load_snark_sumcheck_state(path: str, device="cpu", debug_checks: bool = False, layout=None):
     """Returns (trace_columns, tables, transcript, round_k, previous_sum, pols,
     randoms, challenges as {"row", "trace", "constraint": [Fp]}, sum_value,
-    outputs or None)."""
+    outputs or None); with a ``layout``, the trace columns are this rank's
+    contiguous block and the tables its share (a collective)."""
     with _open(path, "snark_sumcheck") as (z, m):
         outputs = None if m["outputs"] is None else [Fp(int(v)) for v in m["outputs"]]
-        return (_device(z["trace_cols"], device), _load_tables(z, m, device, debug_checks),
+        if layout is None:
+            cols = _device(z["trace_cols"], device)
+        else:
+            cols = layout.shard_rows(torch.from_numpy(z["trace_cols"]))
+        return (cols, _load_tables(z, m, device, debug_checks, layout, "sc_rounds_sharded"),
                 _load_transcript(z, m), m["round_k"], Fp(int(m["previous_sum"])), pols_from_meta(m["pols"]),
                 [Fp(int(r)) for r in m["randoms"]],
                 {k: [Fp(int(v)) for v in vs] for k, vs in m["challenges"].items()},

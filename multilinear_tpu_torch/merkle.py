@@ -74,7 +74,13 @@ class MerkleTree:
         the payloads and the roots, not the digest levels), with the same
         kernels as :meth:`commit`.  The rebuilt roots come to the host in ONE
         copy, and each must equal its saved root."""
-        trees = [MerkleTree.commit(p) for p in payloads]
+        return MerkleTree.check_roots([MerkleTree.commit(p) for p in payloads], roots)
+
+    @staticmethod
+    def check_roots(trees: Sequence["MerkleTree"], roots: Sequence[bytes]) -> List["MerkleTree"]:
+        """``trees`` (rebuilt ones, a sharded tree too) with their roots
+        brought to the host in ONE copy; each must equal its saved root."""
+        trees = list(trees)
         if not trees:
             return trees
         words = stats.fetch(torch.stack([t.root_words for t in trees]))
@@ -88,6 +94,11 @@ class MerkleTree:
     @property
     def num_leaves(self) -> int:
         return self.layers[0].shape[0]
+
+    def gathered_leaf_columns(self) -> torch.Tensor:
+        """The whole leaf payload (B, n, 4) in natural order (a sharded tree
+        gathers it from every rank's block)."""
+        return self.leaf_columns
 
     @property
     def root_words(self) -> torch.Tensor:

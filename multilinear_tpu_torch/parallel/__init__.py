@@ -85,36 +85,49 @@ class ShardLayout:
         return polys[self.rank * b : (self.rank + 1) * b].to(self.device).contiguous()
 
     def gather_rows(self, block: torch.Tensor) -> torch.Tensor:
-        """The whole (n, 4) tensor from every rank's contiguous block, on
-        every rank."""
-        return self.comm.all_gather(block.contiguous()).reshape(-1, 4)
+        """The whole (..., n, 4) tensor from every rank's contiguous
+        (..., n/W, 4) block, on every rank."""
+        g = self.comm.all_gather(block.contiguous())  # (W, ..., n/W, 4)
+        return g.movedim(0, -3).reshape(tuple(block.shape[:-2]) + (-1, 4))
+
+    def cyclic_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's cyclic block of the value axis of a whole (..., n, 4)
+        tensor - the rows i = rank mod W - moved to the layout's device."""
+        if x.shape[-2] % self.world:
+            raise ValueError(f"{x.shape[-2]} rows do not split over {self.world} ranks")
+        return x[..., self.rank :: self.world, :].to(self.device).contiguous()
 
 
 def to_cyclic(block: torch.Tensor, layout: ShardLayout) -> torch.Tensor:
-    """Contiguous blocks -> cyclic blocks, one all-to-all: rank s holds rows
-    i = s h + u (h = n/W); rank r receives the rows i = r mod W, i.e. row
-    i goes to local index i div W.  Needs h to be a multiple of W."""
+    """Contiguous blocks -> cyclic blocks of the value axis of (..., h, 4),
+    one all-to-all: rank s holds rows i = s h + u (h = n/W); rank r receives
+    the rows i = r mod W, i.e. row i goes to local index i div W.  Needs h to
+    be a multiple of W; the leading axes (a batch of columns) go in the same
+    exchange."""
     send = contiguous_to_cyclic_send(block, layout.world)
     return cyclic_from_recv(layout.comm.all_to_all(send))
 
 
 def contiguous_to_cyclic_send(block: torch.Tensor, W: int) -> torch.Tensor:
-    """The all-to-all's send buffer of :func:`to_cyclic`: chunk r holds the
-    local rows u = r mod W (h a multiple of W, so i = u mod W)."""
-    h = block.shape[0]
+    """The all-to-all's send buffer of :func:`to_cyclic`, (W, ..., h/W, 4):
+    chunk r holds the local rows u = r mod W (h a multiple of W, so i = u mod W)."""
+    h = block.shape[-2]
     if h % W:
         raise ValueError(f"a block of {h} rows does not split over {W} ranks")
-    return block.reshape(h // W, W, 4).transpose(0, 1).contiguous()
+    lead = tuple(block.shape[:-2])
+    return block.reshape(lead + (h // W, W, 4)).movedim(-2, 0).contiguous()
 
 
 def cyclic_from_recv(recv: torch.Tensor) -> torch.Tensor:
-    """What :func:`to_cyclic` receives, (W, h/W, 4) chunks by source rank s
-    (rows i = s h + t' W + r), is already in local order t = s h/W + t'."""
-    return recv.reshape(-1, 4)
+    """What :func:`to_cyclic` receives, (W, ..., h/W, 4) chunks by source
+    rank s (rows i = s h + t' W + r), is in local order t = s h/W + t' once
+    the source axis stands before the rows."""
+    return recv.movedim(0, -3).reshape(tuple(recv.shape[1:-2]) + (-1, 4))
 
 
 def gather_cyclic(block: torch.Tensor, layout: ShardLayout) -> torch.Tensor:
-    """Every rank's cyclic (n/W, ...) block -> the whole (n, ...) tensor in
-    natural order, on every rank: global row t W + s is row t of rank s."""
-    g = layout.comm.all_gather(block.contiguous())  # (W, n/W, ...)
-    return g.transpose(0, 1).reshape((-1,) + tuple(block.shape[1:]))
+    """Every rank's cyclic block of the value axis, (..., n/W, 4) -> the whole
+    (..., n, 4) tensor in natural order, on every rank: global row t W + s is
+    row t of rank s."""
+    g = layout.comm.all_gather(block.contiguous())  # (W, ..., n/W, 4)
+    return g.movedim(0, -2).reshape(tuple(block.shape[:-2]) + (-1, 4)).contiguous()

@@ -137,6 +137,13 @@ class Comm:
         dist.all_reduce(buf, op=dist.ReduceOp.SUM)
         return self._back(buf, dev) if staged else buf
 
+    def barrier(self) -> None:
+        """Wait until every rank has called it (a sharded save returns only
+        once rank 0 has written the file)."""
+        import torch.distributed as dist
+
+        dist.barrier()
+
     def exact_sum(self, lanes: torch.Tensor) -> torch.Tensor:
         """The sum over the ranks of field values given as unreduced int64
         limb lanes S+(4,): each rank reduces its own to the canonical

@@ -29,6 +29,7 @@ import torch
 from .. import stats
 from ..merkle import MerklePath, MerkleTree
 from ..sha256_cuda import tree_levels
+from . import gather_cyclic
 
 
 def regroup_send(leaf_digests: torch.Tensor, W: int) -> torch.Tensor:
@@ -82,6 +83,11 @@ class ShardedMerkleTree(MerkleTree):
     @property
     def num_leaves(self) -> int:
         return self.layers[0].shape[0] * self.layout.world
+
+    def gathered_leaf_columns(self) -> torch.Tensor:
+        """The whole (B, q, 4) payload in natural order, on every rank (one
+        all-gather of the cyclic blocks)."""
+        return gather_cyclic(self.leaf_columns, self.layout)
 
     def _gather(self, idx: torch.Tensor) -> torch.Tensor:
         """As ``MerkleTree._gather`` for the whole tree, with zeros where

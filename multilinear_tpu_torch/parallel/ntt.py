@@ -88,25 +88,30 @@ def twiddle_columns(gen_v: int, log_n: int, cols: slice, device):
 def fourstep_columns(X: torch.Tensor, gen_v: int, log_n: int, layout) -> torch.Tensor:
     """The four-step transform over the 2^log_n domain of ``gen_v``, sharded:
     ``X`` is this rank's column block (A, B/W, 4) of the input vector read
-    as an (A, B) matrix, x[alpha B + beta]; returns this rank's cyclic block
-    (n/W, 4) of the natural-order output, out[t W + r]: steps 5-7 of the
-    module docstring."""
+    as an (A, B) matrix, x[alpha B + beta], or a batch of them (C, A, B/W, 4);
+    returns this rank's cyclic block (n/W, 4) (or (C, n/W, 4)) of the
+    natural-order output, out[t W + r]: steps 5-7 of the module docstring.
+    A batch goes through the same launches and the same exchange."""
     W, r = layout.world, layout.rank
     a, b = split(log_n)
     A, B = 1 << a, 1 << b
-    if X.shape != (A, B // W, 4):
+    single = X.dim() == 3
+    X = X.unsqueeze(0) if single else X
+    C = X.shape[0]
+    if X.shape[1:] != (A, B // W, 4):
         raise ValueError(f"fourstep_columns: expected a ({A}, {B // W}, 4) column block, got {tuple(X.shape)}")
     dev = X.device
     X = _bitrev_rows(_pease_rows(X, _pow_table(pow(gen_v, B, P), max(a - 1, 0), dev), a), a)
     Tc, Tf = twiddle_columns(gen_v, log_n, slice(r * B // W, (r + 1) * B // W), dev)
     G = cuda_ops.twiddle_mul3(X, Tc, Tf)
     del X
-    recv = layout.comm.all_to_all(G.view(A // W, W, B // W, 4).transpose(0, 1))
+    recv = layout.comm.all_to_all(G.view(C, A // W, W, B // W, 4).permute(2, 0, 1, 3, 4))
     del G
-    Y = recv.permute(0, 2, 1, 3).reshape(B, A // W, 4)  # (beta, k1')
+    Y = recv.permute(1, 0, 3, 2, 4).reshape(C, B, A // W, 4)  # (beta, k1')
     del recv
     H = _bitrev_rows(_pease_rows(Y, _pow_table(pow(gen_v, A, P), max(b - 1, 0), dev), b), b)
-    return H.reshape(-1, 4)
+    H = H.reshape(C, -1, 4)
+    return H[0] if single else H
 
 
 def _moebius_rank_bits(x: torch.Tensor, w: int) -> torch.Tensor:
@@ -119,37 +124,42 @@ def _moebius_rank_bits(x: torch.Tensor, w: int) -> torch.Tensor:
 
 
 def exchange1_send(coeffs: torch.Tensor, log_n: int, W: int) -> torch.Tensor:
-    """Step 2's send buffer: the local coefficients (n/W, 4) as (W, n_hi,
-    n_lo, 4), chunk r the local u whose bits [a-1-w, a-1) read bitrev_w(r)."""
+    """Step 2's send buffer: the local coefficients (C, n/W, 4) of C
+    polynomials as (W, C, n_hi, n_lo, 4), chunk r the local u whose bits
+    [a-1-w, a-1) read bitrev_w(r)."""
     w = W.bit_length() - 1
     a, b = split(log_n + LOG_BLOWUP)
     n_lo, n_hi = 1 << (a - 1 - w), 1 << (b - w)
-    x = coeffs.view(n_hi, W, n_lo, 4).transpose(0, 1)
+    x = coeffs.view(coeffs.shape[0], n_hi, W, n_lo, 4).permute(2, 0, 1, 3, 4)
     return x.index_select(0, bitrev_indices(W, coeffs.device))
 
 
 def exchange1_place(recv: torch.Tensor, log_n: int, W: int) -> torch.Tensor:
-    """Steps 3-4: the received (W, n_hi, n_lo, 4) coefficients (chunk s from
-    rank s) -> this rank's column block (A, B/W, 4) of the padded
-    bit-reversed coefficient matrix."""
+    """Steps 3-4: the received (W, C, n_hi, n_lo, 4) coefficients (chunk s
+    from rank s) -> this rank's column blocks (C, A, B/W, 4) of the padded
+    bit-reversed coefficient matrices."""
     w = W.bit_length() - 1
     a, b = split(log_n + LOG_BLOWUP)
     A = 1 << a
     recv = _moebius_rank_bits(recv.contiguous(), w)
-    n_hi = recv.shape[1]
-    M = recv.permute(1, 2, 0, 3).reshape(n_hi, A // 2, 4)  # M[hi, lo W + s]
-    M = M.index_select(0, bitrev_indices(n_hi, M.device)).index_select(1, bitrev_indices(A // 2, M.device))
-    X = torch.zeros((A, n_hi, 4), dtype=torch.int32, device=M.device)
-    X[: A // 2] = M.transpose(0, 1)
+    C, n_hi = recv.shape[1], recv.shape[2]
+    M = recv.permute(1, 2, 3, 0, 4).reshape(C, n_hi, A // 2, 4)  # M[hi, lo W + s]
+    M = M.index_select(1, bitrev_indices(n_hi, M.device)).index_select(2, bitrev_indices(A // 2, M.device))
+    X = torch.zeros((C, A, n_hi, 4), dtype=torch.int32, device=M.device)
+    X[:, : A // 2] = M.transpose(1, 2)
     return X
 
 
 def encode_cyclic(evals: torch.Tensor, layout) -> torch.Tensor:
     """This rank's cyclic block (n/W, 4) of the evaluations -> its cyclic
     block (2n/W, 4) of the Reed-Solomon codeword of the bit-reversed
-    coefficients: the sharded ``fri.encode_mle_for_fri``."""
+    coefficients: the sharded ``fri.encode_mle_for_fri``.  A batch of C
+    columns, (C, n/W, 4) -> (C, 2n/W, 4), is one pass: the same launches
+    and the same two all-to-alls, each carrying all C columns."""
     W = layout.world
-    log_n = (evals.shape[0] * W).bit_length() - 1
+    single = evals.dim() == 2
+    evals = evals.unsqueeze(0) if single else evals
+    log_n = (evals.shape[-2] * W).bit_length() - 1
     check_sizes(log_n, layout.log_world)
     coeffs = cuda_ops.zm_butterfly(evals, add=False)
     recv = layout.comm.all_to_all(exchange1_send(coeffs, log_n, W))
@@ -157,4 +167,5 @@ def encode_cyclic(evals: torch.Tensor, layout) -> torch.Tensor:
     X = exchange1_place(recv, log_n, W)
     del recv
     log_m = log_n + LOG_BLOWUP
-    return fourstep_columns(X, pow2_generator(log_m).v, log_m, layout)
+    code = fourstep_columns(X, pow2_generator(log_m).v, log_m, layout)
+    return code[0] if single else code

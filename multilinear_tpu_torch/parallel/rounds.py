@@ -20,6 +20,12 @@ root, so the same challenge), folds the tables and calls the FRI layer's
   hashes the top levels from the gathered roots (``parallel.merkle``):
   (W - 1)/W of 32 bytes a leaf of its block, and 32 (W - 1) bytes.
 
+A SNARK's trace sumcheck (``sumcheck.DeviceSumcheckRounds`` on
+:meth:`ShardedTables.for_trace`) runs the same way: its composition is
+elementwise, so each rank evaluates it on its block; the d sums cross the
+ranks (32 d bytes a round), every rank launches the same
+``sumcheck_round_scalars`` and the fold moves nothing.
+
 **Where sharding stops.**  A round runs sharded while the codeword it folds
 has at least 4 W^2 values: its q = m/4 new leaves then give each rank pair
 at least one digest to regroup (the JAX package's gate is q >= W).  Below,
@@ -40,6 +46,7 @@ from ..config import LOG_BLOWUP
 from ..field import cuda_ops, limbs, ops
 from ..field.scalar import ONE, Fp, P, pow2_generator
 from ..fri import FriError, FriProverData, _pair_view, _rh_limbs
+from ..merkle import MerkleTree
 from ..mle import factor_subtables
 from ..ntt import _pow_table, inv_gen_pows
 from ..sumcheck import PCS_DEGREE, SumcheckTables, _pack_tables_kernel, _partial_sums_kernel, identity_composition
@@ -75,51 +82,96 @@ def batch_to_rows(x: torch.Tensor, layout: ShardLayout) -> torch.Tensor:
     return layout.comm.all_to_all(send).reshape(W * Bl, m // W, 4)
 
 
-class ShardedTables(SumcheckTables):
-    """A rank's cyclic block of the packed (evals || delta) table; the
-    height is the whole table's."""
+def _eq_factors(points: Sequence[Fp], layout: ShardLayout):
+    """The host factors of this rank's delta block: delta[t W + r] =
+    eq(points[:N-w], t) * eq(points[N-w:], r).  The rank's factor of the
+    last w variables is one scalar, folded into the first factor; the
+    tensor product (``kron_mul``) of the others is the block - no rank
+    builds the whole table."""
+    w, r = layout.log_world, layout.rank
+    N = len(points)
+    pts = [Fp(p) for p in points]
+    s = ONE
+    for j in range(N - w, N):
+        s = s * (pts[j] if (r >> (N - 1 - j)) & 1 else ONE - pts[j])
+    factors = [((ONE - p).v, p.v) for p in pts[: N - w]]
+    factors[0] = (factors[0][0] * s.v % P, factors[0][1] * s.v % P)
+    return factors
 
-    def __init__(self, data: torch.Tensor, height: int, layout: ShardLayout, debug_checks: bool = False):
+
+class ShardedTables(SumcheckTables):
+    """A rank's cyclic block of the packed (columns || delta) table; the
+    height is the whole table's.  ``counter`` is the ``stats`` counter a
+    round with sums over the ranks bumps: ``rounds_sharded`` for the PCS,
+    ``sc_rounds_sharded`` for a SNARK's trace sumcheck."""
+
+    def __init__(self, data: torch.Tensor, height: int, layout: ShardLayout, debug_checks: bool = False,
+                 counter: str = "rounds_sharded"):
         super().__init__(data, height, debug_checks)
         self.layout = layout
+        self.counter = counter
         self.sharded = True
 
     @staticmethod
     def for_pcs(inputs: Sequence[Fp], evals: torch.Tensor, layout: ShardLayout,
                 debug_checks: bool = False) -> "ShardedTables":
         """Tables of the claim p(inputs) = output from this rank's cyclic
-        block of the evaluations.  delta[t W + r] = eq(inputs[:N-w], t) *
-        eq(inputs[N-w:], r): the rank's factor of the last w variables is
-        one scalar, folded into the first host factor, and the local table
-        is the usual tensor product (``kron_mul``) of the others - no rank
-        builds the whole table."""
-        W, w, r = layout.world, layout.log_world, layout.rank
-        N = len(inputs)
-        if evals.shape[0] * W != 1 << N:
+        block of the evaluations (:func:`_eq_factors`)."""
+        if evals.shape[0] * layout.world != 1 << len(inputs):
             raise ValueError("need one input per variable of the MLE")
-        pts = [Fp(p) for p in inputs]
-        s = ONE
-        for j in range(N - w, N):
-            s = s * (pts[j] if (r >> (N - 1 - j)) & 1 else ONE - pts[j])
-        factors = [((ONE - p).v, p.v) for p in pts[: N - w]]
-        factors[0] = (factors[0][0] * s.v % P, factors[0][1] * s.v % P)
-        data = _pack_tables_kernel(evals, factor_subtables(factors, evals.device))
-        return ShardedTables(data, 1 << N, layout, debug_checks)
+        data = _pack_tables_kernel(evals, factor_subtables(_eq_factors(inputs, layout), evals.device))
+        return ShardedTables(data, 1 << len(inputs), layout, debug_checks)
+
+    @staticmethod
+    def for_trace(row_challenges: Sequence[Fp], columns: torch.Tensor, layout: ShardLayout,
+                  debug_checks: bool = False) -> "ShardedTables":
+        """The counterpart of ``SumcheckTables.for_trace`` from this rank's
+        cyclic block (w, h/W, 4) of the trace columns: the packed (w+1, h/W,
+        4) block, whose rows are rows t W + r of the single-rank table."""
+        if columns.dim() != 3 or columns.shape[-1] != 4:
+            raise ValueError(f"trace columns must be a (w, h/W, 4) limb tensor, got {tuple(columns.shape)}")
+        if columns.shape[1] * layout.world != 1 << len(row_challenges):
+            raise ValueError("need one row challenge per variable of the trace")
+        if debug_checks and not ops.is_canonical(columns):
+            raise ValueError("non-canonical field element in the trace columns")
+        data = _pack_tables_kernel(columns, factor_subtables(_eq_factors(row_challenges, layout), columns.device))
+        return ShardedTables(data, 1 << len(row_challenges), layout, debug_checks, "sc_rounds_sharded")
+
+    @staticmethod
+    def from_whole(data: torch.Tensor, height: int, layout: ShardLayout, debug_checks: bool = False,
+                   counter: str = "rounds_sharded") -> "ShardedTables":
+        """This rank's tables from the whole (w+1, height, 4) table of a
+        checkpoint: its cyclic block while a block keeps at least two rows,
+        else the whole table on every rank, as :meth:`partial_sums` leaves
+        it once gathered."""
+        if data.shape[1] >= 2 * layout.world:
+            return ShardedTables(layout.cyclic_rows(data), height, layout, debug_checks, counter)
+        tables = ShardedTables(data.to(layout.device), height, layout, debug_checks, counter)
+        tables.sharded = False
+        return tables
+
+    def gathered(self) -> torch.Tensor:
+        """The whole table in natural order, on every rank (a collective
+        while the table is sharded)."""
+        return gather_cyclic(self.data, self.layout) if self.sharded else self.data
 
     def partial_sums(self, composition=identity_composition, total_degree: int = PCS_DEGREE,
                      aux=None) -> torch.Tensor:
         """The round's sums over the whole table: this rank's, reduced, then
-        added over the ranks (``comm.exact_sum``); once gathered, the whole
-        table's own."""
+        added over the ranks (``comm.exact_sum``: 32 bytes an evaluation);
+        once a block is down to one row, the table is gathered (w+1 rows of
+        W values) and the rest runs on the whole table on every rank."""
         if self.sharded and self.data.shape[1] < 2:
-            g = self.layout.comm.all_gather(self.data)  # (W, w+1, 1, 4): row t W + s is g[s, :, t]
-            self.data = g.permute(1, 2, 0, 3).reshape(self.data.shape[0], -1, 4).contiguous()
+            self.data = gather_cyclic(self.data, self.layout)
             self.sharded = False
         local = _partial_sums_kernel(self.data, total_degree, composition, aux)
         if not self.sharded:
             return local
-        stats.bump("rounds_sharded")
-        return self.layout.comm.exact_sum(local)
+        stats.bump(self.counter)
+        before = stats.counts().get("collective_bytes", 0)
+        sums = self.layout.comm.exact_sum(local)
+        stats.append(self.counter + "_sum_bytes", stats.counts()["collective_bytes"] - before)
+        return sums
 
 
 class ShardedFriProverData(FriProverData):
@@ -208,36 +260,70 @@ class ShardedFriProverData(FriProverData):
     def open_many(self, trees, idx_lists):
         return open_batch_many(trees, idx_lists, self.layout)
 
+    @staticmethod
+    def resume(payloads: Sequence[torch.Tensor], roots: Sequence[bytes], log_domain: int,
+               last_element: Optional[Fp], layout: ShardLayout, debug_checks: bool = False) -> "ShardedFriProverData":
+        """This rank's FRI layers from a checkpoint's whole pair payloads
+        (natural order, host or device) and roots, as :meth:`fold_step` left
+        them: a layer of at least 2 W^2 values was made on the blocks (its
+        cyclic block, its tree rebuilt over the ranks), a smaller one in the
+        gathered tail (whole on every rank).  ONE copy brings every rebuilt
+        root back; a root that differs raises ``MerkleRootMismatch``."""
+        data = ShardedFriProverData(layout, log_domain, debug_checks)
+        W = layout.world
+        trees = []
+        for p in payloads:
+            if 2 * p.shape[1] >= 2 * W * W:
+                trees.append(ShardedMerkleTree.commit(layout.cyclic_rows(p), layout))
+            else:
+                trees.append(MerkleTree.commit(p.to(layout.device)))
+        data.trees = MerkleTree.check_roots(trees, roots)
+        if last_element is not None:
+            data.last_element = last_element
+        elif data.trees:
+            data._current = data.trees[-1].leaf_columns.reshape(-1, 4)
+            if not isinstance(data.trees[-1], ShardedMerkleTree):
+                # the tail began at the round that folded a codeword of
+                # fewer than 4 W^2 values: 2^(log_domain - k) < 4 W^2
+                k = log_domain - 2 * layout.log_world - 1
+                data.sharded = False
+                data._tail_k = k
+                data._inv_pows = inv_gen_pows(log_domain - k, data._current.device)
+        return data
+
 
 class ShardedBatchedFriProverData(BatchedFriProverData):
-    """The batched FRI over ranks that each hold whole polynomials: the
-    codewords are turned into row blocks once (every rank then holds all B
-    values of its rows), the batch tree and the fingerprint are per row, and
-    the first fold and every later one are the sharded plain folds."""
+    """The batched FRI over ranks that each hold the same rows of all B
+    codewords (their cyclic blocks): the batch tree and the fingerprint are
+    per row, and the first fold and every later one are the sharded plain
+    folds."""
 
-    def __init__(self, batch_tree, fingerprint_r: Fp, codes: torch.Tensor, layout: ShardLayout,
-                 debug_checks: bool = False):
+    def __init__(self, batch_tree, fingerprint_r: Fp, codes: Optional[torch.Tensor],
+                 fri_data: "ShardedFriProverData"):
+        """``codes``: the rows the first fold consumes (None once it has, as
+        in a resumed session); ``fri_data``: the plain layers that follow."""
         self.batch_tree = batch_tree
         self.fingerprint_r = fingerprint_r
-        self.fingerprint_limbs = limbs.pack_scalar(fingerprint_r, codes.device)
-        m = codes.shape[-2] * layout.world
-        self.fri_data = ShardedFriProverData(layout, m.bit_length() - 1, debug_checks)
+        self.fingerprint_limbs = limbs.pack_scalar(fingerprint_r, fri_data.layout.device)
+        self.fri_data = fri_data
         self._codes = codes
 
     @staticmethod
-    def init(codes: torch.Tensor, transcript: Transcript, layout: ShardLayout,
+    def init(rows: torch.Tensor, transcript: Transcript, layout: ShardLayout,
              debug_checks: bool = False) -> "ShardedBatchedFriProverData":
-        """``codes``: this rank's (B/W, m, 4) codewords.  One all-to-all to
-        row blocks, the batch commit, its root (one copy), fingerprint_r."""
-        if debug_checks and not ops.is_canonical(codes):
+        """``rows``: this rank's cyclic blocks (B, m/W, 4) of the B codewords
+        (``batch_to_rows`` of whole codewords, or the row-sharded encode).
+        The batch commit, its root (one copy), fingerprint_r."""
+        if debug_checks and not ops.is_canonical(rows):
             raise FriError("non-canonical field element in codewords")
-        rows = batch_to_rows(codes.contiguous(), layout)  # (B, m/W, 4)
         B, ml, _ = rows.shape
-        tree = ShardedMerkleTree.commit(rows.view(2 * B, ml // 2, 4), layout)
+        tree = ShardedMerkleTree.commit(rows.contiguous().view(2 * B, ml // 2, 4), layout)
         transcript.absorb(tree.root_bytes())
         fingerprint_r = transcript.next_challenge()
         transcript.absorb(fingerprint_r.to_bytes())
-        return ShardedBatchedFriProverData(tree, fingerprint_r, rows, layout, debug_checks)
+        m = ml * layout.world
+        return ShardedBatchedFriProverData(tree, fingerprint_r, rows,
+                                           ShardedFriProverData(layout, m.bit_length() - 1, debug_checks))
 
     def batched_fold_step(self, rh: torch.Tensor) -> None:
         """The first fold: this rank's rows' fingerprints, then the sharded

@@ -38,7 +38,7 @@ import torch
 
 from . import device_transcript as dtr
 from . import stats
-from .checkpoint import load_pcs_state, normalize_ckpt_path, save_pcs_state
+from .checkpoint import barrier, is_writer, load_pcs_state, normalize_ckpt_path, save_pcs_state
 from .config import LOG_BLOWUP, NUM_QUERIES, ProverConfig
 from .field import limbs, ops
 from .field.scalar import Fp
@@ -236,7 +236,10 @@ class PCSProverSession:
     With a ``layout`` (``parallel.ShardLayout``) the session is one rank of
     a sharded prove: ``evals`` is the rank's contiguous block of 2^n / W
     rows, the encode, the tables and the FRI layers are the rank's
-    (``parallel.rounds``), and the rounds are the same ``DeviceRounds``."""
+    (``parallel.rounds``), and the rounds are the same ``DeviceRounds``.
+    ``cyclic``: ``evals`` is already the rank's cyclic block (rows i = rank
+    mod W), as a SNARK's trace sumcheck left its column, and the exchange
+    that turns a contiguous block cyclic is skipped."""
 
     def __init__(
         self,
@@ -246,6 +249,7 @@ class PCSProverSession:
         transcript: Transcript,
         config: Optional[ProverConfig] = None,
         layout=None,
+        cyclic: bool = False,
     ):
         self.config = config or ProverConfig()
         self.inputs = [Fp(x) for x in inputs]
@@ -270,7 +274,10 @@ class PCSProverSession:
             from .parallel import rounds as sharded
 
             sharded.check_rows(self.n_vars, layout)
-            evals, code = sharded.encode_rows(evals, layout)
+            if cyclic:
+                code = sharded.encode_cyclic(evals, layout)
+            else:
+                evals, code = sharded.encode_rows(evals, layout)
         pt.mark("encode")
         # the root is absorbed on the device by the first round
         if layout is None:
@@ -320,27 +327,38 @@ class PCSProverSession:
     def save(self, path: str) -> None:
         """Save the session to ``path`` (``.npz`` appended if missing) and its
         claim to ``path + ".claim"``.  Rounds launched and not replayed yet
-        are replayed first (one copy), so the host transcript is current."""
-        if self.layout is not None:
-            raise NotImplementedError("a sharded session is not saved yet")
+        are replayed first (one copy), so the host transcript is current.
+        A sharded session is saved by every rank at once and writes the file
+        of the single-rank session at the same round: the blocks are
+        gathered, rank 0 writes (on many hosts, to rank 0's disk), and every
+        rank returns after a barrier."""
+        self._write(path)
+        barrier(self.layout)
+
+    def _write(self, path: str) -> None:
+        """``save`` up to its barrier."""
         self.pols += self.rounds.replay(self.fri_data)
         path = normalize_ckpt_path(path)
         save_pcs_state(path, self.tables, self.fri_data, self.transcript, self.k, self.rounds.running_sum(),
-                       self.pols)
-        with open(path + ".claim", "w") as f:
-            json.dump({"inputs": [x.v for x in self.inputs], "output": self.output.v}, f)
+                       self.pols, self.layout)
+        if is_writer(self.layout):
+            with open(path + ".claim", "w") as f:
+                json.dump({"inputs": [x.v for x in self.inputs], "output": self.output.v}, f)
 
     @staticmethod
-    def resume(path: str, config: Optional[ProverConfig] = None) -> "PCSProverSession":
+    def resume(path: str, config: Optional[ProverConfig] = None, layout=None) -> "PCSProverSession":
         """The session saved at ``path``, its tensors on ``config.device``
         (default: the card) and its trees rebuilt; the rounds' Fiat-Shamir
-        hops to the device again."""
+        hops to the device again.  With a ``layout``, every rank calls it and
+        keeps its cyclic blocks of the file's tables and codewords on the
+        layout's device, its subtrees rebuilt over the ranks: the file of a
+        sharded or a single-rank session resumes either way."""
         path = normalize_ckpt_path(path)
         s = PCSProverSession.__new__(PCSProverSession)
         s.config = config or ProverConfig()
-        s.layout = None
+        s.layout = layout
         s.tables, s.fri_data, s.transcript, s.k, prev, s.pols = load_pcs_state(
-            path, s.config.device, s.config.debug_checks)
+            path, s.config.device, s.config.debug_checks, layout)
         with open(path + ".claim") as f:
             claim = json.load(f)
         s.inputs = [Fp(int(v)) for v in claim["inputs"]]
@@ -348,4 +366,6 @@ class PCSProverSession:
         s.n_vars = len(s.inputs)
         s.rounds = DeviceRounds(s.transcript, s.n_vars, prev, s.tables.data.device)
         s.rounds.roots_absorbed = s.k  # round j absorbed the root of tree j
+        if layout is not None:
+            s.fri_data.mark_bytes()
         return s

@@ -15,11 +15,14 @@ assert which one ran:
 * ``fri_folds_fused`` / ``fri_folds_plain`` - folds through
   ``fold_commit_leaves`` and through ``fold_codeword`` (``fri``);
 * a sharded prove (``parallel``): ``rounds_sharded`` - PCS rounds (plain or
-  batched) whose sums were added over the ranks; ``fri_rounds_sharded`` -
+  batched) whose sums were added over the ranks; ``sc_rounds_sharded`` -
+  the same for a SNARK's trace-sumcheck rounds; ``fri_rounds_sharded`` -
   folds and commits made on a rank's block (PCS or standalone FRI);
   ``collectives``, ``collective_bytes`` and ``collective_staged_copies``
   (``parallel.comm``); and the series ``round_collective_bytes``, the bytes
-  this rank sent in each round.
+  this rank sent in each PCS or FRI round, and ``rounds_sharded_sum_bytes`` /
+  ``sc_rounds_sharded_sum_bytes``, the bytes of each sharded round's exact
+  sum.
 """
 
 from __future__ import annotations

@@ -213,6 +213,11 @@ class SumcheckTables:
         of this round's polynomial.  The defaults are the PCS's."""
         return _partial_sums_kernel(self.data, total_degree, composition, aux)
 
+    def gathered(self) -> torch.Tensor:
+        """The whole packed table in natural order (a sharded table gathers
+        it from every rank's block)."""
+        return self.data
+
     def fold(self, r: torch.Tensor) -> None:
         """Fold with the challenge r, a (4,) field element on the tables'
         device (where the round's Fiat-Shamir kernel drew it)."""

@@ -38,8 +38,8 @@ import torch
 from . import stats
 from .batched_pcs import BatchedPCSClaim, BatchedPCSProof, BatchedPCSProverSession
 from .checkpoint import (
-    checkpoint_kind, load_snark_sumcheck_state, normalize_ckpt_path, pols_from_meta, pols_to_meta,
-    save_snark_sumcheck_state,
+    barrier, checkpoint_kind, is_writer, load_snark_sumcheck_state, normalize_ckpt_path, pols_from_meta,
+    pols_to_meta, save_snark_sumcheck_state,
 )
 from .config import ProverConfig
 from .field import limbs
@@ -221,11 +221,17 @@ class System:
     """Prover/verifier context tying constraints, challenges and the trace.
 
     Reference: System (src/constraint_system/system.rs:8-128).
+
+    With a ``shard`` (``parallel.ShardLayout``) the prover is one rank of a
+    sharded SNARK: ``trace`` is the rank's contiguous block of rows
+    (``shard.shard_rows`` of the whole trace's columns), ``log_num_rows``
+    the whole trace's, and the tables are the rank's cyclic block.
     """
 
     def __init__(self, transcript: Transcript, constraints: ConstraintSet, layout: WitnessLayout,
                  commitment: Commitment, log_num_rows: int, trace: Optional[Trace],
-                 config: Optional[ProverConfig] = None, challenges: Optional[ChallengeSet] = None):
+                 config: Optional[ProverConfig] = None, challenges: Optional[ChallengeSet] = None,
+                 shard=None):
         """``challenges``: a set drawn earlier (a resumed session), in place
         of drawing one from ``transcript``."""
         n_constraints = len(constraints.constraints)
@@ -234,18 +240,28 @@ class System:
         self.layout = layout
         self.commitment = commitment
         self.config = config or ProverConfig()
-        self.trace = None if trace is None else trace.to(self.config.device)
+        self.shard = shard
+        self.trace = None if trace is None else trace.to(self.config.device if shard is None else shard.device)
+        self._columns: Optional[torch.Tensor] = None
         self.challenges = challenges or ChallengeSet(transcript, layout.randoms, log_num_constraints, log_num_rows)
         cc = self.challenges.constraint
         self.constraint_mask = [mask_scalar(i, len(cc), cc) for i in range(n_constraints)]
 
     @staticmethod
     def prover(transcript: Transcript, constraints: ConstraintSet, layout: WitnessLayout, trace: Trace,
-               config: Optional[ProverConfig] = None) -> "System":
+               config: Optional[ProverConfig] = None, shard=None) -> "System":
         """A prover on ``config.device`` (default: the card); the trace's
-        columns are moved there."""
-        log_num_rows = trace.height.bit_length() - 1
-        return System(transcript, constraints, layout, Commitment(trace), log_num_rows, trace, config)
+        columns are moved there.  With a ``shard``, one rank of a sharded
+        prove on the shard's device: ``trace`` is the rank's contiguous
+        block, and the row challenges are drawn for the whole trace's
+        W x ``trace.height`` rows."""
+        ranks = 1 if shard is None else shard.world
+        log_num_rows = (trace.height * ranks).bit_length() - 1
+        if shard is not None:
+            from .parallel.rounds import check_rows
+
+            check_rows(log_num_rows, shard)
+        return System(transcript, constraints, layout, Commitment(trace), log_num_rows, trace, config, shard=shard)
 
     @staticmethod
     def verifier(transcript: Transcript, constraints: ConstraintSet, layout: WitnessLayout,
@@ -270,11 +286,28 @@ class System:
         return eq_scalar(self.challenges.row, inputs)
 
     # -- prover flow ----------------------------------------------------------
-    def build_tables(self) -> SumcheckTables:
+    def prover_columns(self) -> torch.Tensor:
+        """The trace's columns as the prover holds them, (w, rows, 4): the
+        whole trace, or with a shard this rank's cyclic block of it (one
+        all-to-all, made once: the trace sumcheck and the PCS both read it)."""
         if self.trace is None:
             raise ValueError("a verifier has no trace")
-        return SumcheckTables.for_trace(self.challenges.row, self.trace.columns_device(),
-                                        self.config.debug_checks)
+        if self._columns is None:
+            cols = self.trace.columns_device()
+            if self.shard is not None:
+                from .parallel import to_cyclic
+
+                cols = to_cyclic(cols, self.shard)
+            self._columns = cols
+        return self._columns
+
+    def build_tables(self) -> SumcheckTables:
+        if self.shard is None:
+            return SumcheckTables.for_trace(self.challenges.row, self.prover_columns(), self.config.debug_checks)
+        from .parallel.rounds import ShardedTables
+
+        return ShardedTables.for_trace(self.challenges.row, self.prover_columns(), self.shard,
+                                       self.config.debug_checks)
 
     def compute_sumcheck_polynomials(self, transcript: Transcript, tables: SumcheckTables, sum_value: Fp):
         """The standalone sumcheck over the masked constraints: (pols, randoms)."""
@@ -285,6 +318,8 @@ class System:
     def verify_sumcheck_debug(self, transcript: Transcript, pols, sum_value: Fp) -> None:
         """Prover-side debug check: re-evaluates the trace's MLEs
         (reference sumcheck.rs:55-89)."""
+        if self.shard is not None:
+            raise ValueError("the debug check evaluates the whole trace, which a rank of a sharded prove lacks")
         rs, final = replay_sumcheck(transcript, pols, sum_value)
         output = self.trace.evaluate(rs)
         if self.evaluate_delta(rs) * self.evaluate_composition(output) != final:
@@ -348,11 +383,20 @@ class SnarkProverSession:
     then the PCS session's own (encode, commit_l0 or commit_batch, tables,
     rounds, queries).  The outputs - each column's MLE at the sumcheck point -
     are what the last round's fold leaves in the tables; they come to the host
-    in the copy that ends the rounds."""
+    in the copy that ends the rounds.
+
+    With a ``shard`` (``parallel.ShardLayout``) the session is one rank of a
+    sharded prove (``System.prover``): the trace sumcheck runs on the rank's
+    cyclic block of the columns, and the PCS opens that block as it is - the
+    plain PCS row-sharded for one column, the batched PCS in its row mode for
+    several - with no second exchange of the trace.  Every rank ends with the
+    single-rank proof."""
 
     def __init__(self, transcript: Transcript, constraints: ConstraintSet, layout: WitnessLayout, trace: Trace,
-                 sum_value: Fp = None, config: Optional[ProverConfig] = None, system: Optional[System] = None):
-        self.system = system or System.prover(transcript, constraints, layout, trace, config)
+                 sum_value: Fp = None, config: Optional[ProverConfig] = None, system: Optional[System] = None,
+                 shard=None):
+        self.system = system or System.prover(transcript, constraints, layout, trace, config, shard)
+        self.shard = self.system.shard
         self.config = self.system.config
         self.transcript = transcript
         self.trace = self.system.trace
@@ -399,12 +443,14 @@ class SnarkProverSession:
         if len(self.randoms) != self.n_rounds:
             raise RuntimeError("sumcheck phase not finished")
         self.outputs = self.rounds.outputs
-        cols = self.trace.columns_device()
-        if self.trace.width == 1:
-            self.pcs_session = PCSProverSession(self.randoms, self.outputs[0], cols[0], self.transcript, self.config)
+        cols = self.system.prover_columns()
+        sharded = {} if self.shard is None else {"layout": self.shard, "cyclic": True}
+        if cols.shape[0] == 1:
+            self.pcs_session = PCSProverSession(self.randoms, self.outputs[0], cols[0], self.transcript, self.config,
+                                                **sharded)
         else:
             claim = BatchedPCSClaim(inputs=list(self.randoms), outputs=list(self.outputs))
-            self.pcs_session = BatchedPCSProverSession(claim, cols, self.transcript, self.config)
+            self.pcs_session = BatchedPCSProverSession(claim, cols, self.transcript, self.config, **sharded)
 
     def run_pcs_rounds(self, max_rounds: Optional[int] = None) -> int:
         if self.pcs_session is None:
@@ -424,37 +470,50 @@ class SnarkProverSession:
         launched and not replayed yet replayed first.  In the sumcheck phase
         the file holds the trace, the tables, the transcript, the rounds so
         far and the challenges; in the PCS phase it is the PCS session's,
-        with the sumcheck's result in ``path + ".snark"``."""
+        with the sumcheck's result in ``path + ".snark"``.  A sharded session
+        writes the single-rank session's files, as ``pcs.PCSProverSession.save``:
+        every rank calls it, rank 0 writes, every rank returns after a barrier."""
         path = normalize_ckpt_path(path)
         if self.pcs_session is None:
             self._replay()
-            save_snark_sumcheck_state(path, self.trace.columns_device(), self.tables, self.transcript, self.rounds.k,
+            cols = self.trace.columns_device()
+            if self.shard is not None:
+                cols = self.shard.gather_rows(cols)
+            save_snark_sumcheck_state(path, cols, self.tables, self.transcript, self.rounds.k,
                                       self.rounds.running_sum(), self.pols, self.randoms, self.system.challenges,
-                                      self.sum_value, self.rounds.outputs)
-            return
-        self.pcs_session.save(path)
-        with open(path + ".snark", "w") as f:
-            json.dump({"width": len(self.outputs), "sum_value": self.sum_value.v,
-                       "pols": pols_to_meta(self.pols),
-                       "outputs": [x.v for x in self.outputs]}, f)
+                                      self.sum_value, self.rounds.outputs, self.shard)
+        else:
+            self.pcs_session._write(path)
+            if is_writer(self.shard):
+                with open(path + ".snark", "w") as f:
+                    json.dump({"width": len(self.outputs), "sum_value": self.sum_value.v,
+                               "pols": pols_to_meta(self.pols),
+                               "outputs": [x.v for x in self.outputs]}, f)
+        barrier(self.shard)
 
     @staticmethod
     def resume(path: str, constraints: ConstraintSet, layout: WitnessLayout,
-               config: Optional[ProverConfig] = None) -> "SnarkProverSession":
+               config: Optional[ProverConfig] = None, shard=None) -> "SnarkProverSession":
         """The session saved at ``path``, on ``config.device`` (default: the
         card).  Constraints are callables and are not saved: the caller
-        passes the same ``constraints`` and ``layout`` again."""
+        passes the same ``constraints`` and ``layout`` again.  With a
+        ``shard``, every rank calls it and resumes its share of the file
+        (of a sharded or a single-rank session) on the shard's device: the
+        trace's contiguous block, the tables' cyclic block, the PCS as
+        ``pcs.PCSProverSession.resume`` with a layout."""
         path = normalize_ckpt_path(path)
         config = config or ProverConfig()
         s = SnarkProverSession.__new__(SnarkProverSession)
         s.config = config
+        s.shard = shard
         if checkpoint_kind(path) == "snark_sumcheck":
             (cols, s.tables, s.transcript, k, prev, s.pols, s.randoms, ch, s.sum_value,
-             outputs) = load_snark_sumcheck_state(path, config.device, config.debug_checks)
+             outputs) = load_snark_sumcheck_state(path, config.device, config.debug_checks, shard)
             s.trace = Trace.from_columns(cols)
             challenges = ChallengeSet.from_values(ch["row"], ch["trace"], ch["constraint"])
-            s.system = System(s.transcript, constraints, layout, Commitment(s.trace), s.trace.height.bit_length() - 1,
-                              s.trace, config, challenges)
+            ranks = 1 if shard is None else shard.world
+            s.system = System(s.transcript, constraints, layout, Commitment(s.trace),
+                              (s.trace.height * ranks).bit_length() - 1, s.trace, config, challenges, shard)
             s.rounds = DeviceSumcheckRounds(s.transcript, s.tables, constraints.composition_fn(),
                                             constraints.degree + 1, prev, s.system.aux, rounds_done=k)
             s.rounds.outputs = outputs
@@ -466,7 +525,7 @@ class SnarkProverSession:
         with open(path + ".snark") as f:
             sm = json.load(f)
         session_type = PCSProverSession if sm["width"] == 1 else BatchedPCSProverSession
-        s.pcs_session = session_type.resume(path, config)
+        s.pcs_session = session_type.resume(path, config, shard)
         s.system = s.trace = s.tables = s.rounds = None
         s.transcript = s.pcs_session.transcript
         s.sum_value = Fp(int(sm["sum_value"]))

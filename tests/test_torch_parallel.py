@@ -6,7 +6,10 @@ One group of W gloo processes per W (2 and 4) runs every case inside
 groups start when the module's fixture does and run while this process
 builds the references.  Everything compared is bytes and field residues:
 every comparison is exact.  The JAX proves stay on their host route (at most
-4096 rows); the JAX four-step transform is ``multilinear_tpu.ntt.ntt``.
+4096 rows); the JAX four-step transform is ``multilinear_tpu.ntt.ntt``.  The
+sessions the ranks save half way are held against the single-rank session's
+file of the same round, array by array, and resumed both over the ranks and
+here on one rank.
 """
 
 import hashlib
@@ -31,20 +34,29 @@ from multilinear_tpu.pcs import PCSProof as JPCSProof
 from multilinear_tpu.serialize import batched_pcs_proof_to_bytes as j_batched_to_bytes
 from multilinear_tpu.serialize import fri_proof_to_bytes as j_fri_to_bytes
 from multilinear_tpu.serialize import pcs_proof_to_bytes as j_pcs_to_bytes
+from multilinear_tpu.serialize import snark_proof_to_bytes as j_snark_to_bytes
+from multilinear_tpu.system import ConstraintSet as JConstraintSet
+from multilinear_tpu.system import System as JSystem
+from multilinear_tpu.system import Trace as JTrace
+from multilinear_tpu.system import WitnessLayout as JWitnessLayout
 from multilinear_tpu.transcript import Transcript as JTranscript
 
 import torch
 import torch_parallel_worker as worker
-from multilinear_tpu_torch.batched_pcs import BatchedPCSProof
+from multilinear_tpu_torch.batched_pcs import BatchedPCSClaim, BatchedPCSProof, BatchedPCSProverSession
 from multilinear_tpu_torch.field import limbs
-from multilinear_tpu_torch.field.scalar import P
+from multilinear_tpu_torch.field.scalar import Fp, P
 from multilinear_tpu_torch.fri import FriProof, _pair_view
 from multilinear_tpu_torch.merkle import MerkleTree
 from multilinear_tpu_torch.parallel import ShardLayout, contiguous_to_cyclic_send, cyclic_from_recv
+from multilinear_tpu_torch.parallel.rounds import ShardedTables
 from multilinear_tpu_torch.parallel.comm import canonical_lanes
 from multilinear_tpu_torch.parallel.merkle import regroup_recv, regroup_send
 from multilinear_tpu_torch.pcs import PCSProof
-from multilinear_tpu_torch.serialize import batched_pcs_proof_to_bytes, fri_proof_to_bytes, pcs_proof_to_bytes
+from multilinear_tpu_torch.serialize import (
+    batched_pcs_proof_to_bytes, fri_proof_to_bytes, pcs_proof_to_bytes, snark_proof_to_bytes,
+)
+from multilinear_tpu_torch.sumcheck import SumcheckTables
 from multilinear_tpu_torch.transcript import Transcript
 
 WORLDS = (2, 4)
@@ -70,7 +82,8 @@ def _read(path: str) -> str:
 @pytest.fixture(scope="module")
 def ranks():
     """{W: [rank 0's results, ..., rank W-1's]} from one gloo group per W,
-    and the references, built while the ranks run."""
+    and the references, built while the ranks run.  The ranks' saved
+    sessions stay in ``refs["dirs"][W]`` while the module's tests run."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["OMP_NUM_THREADS"] = "1"
     with tempfile.TemporaryDirectory(prefix="mlt_parallel_") as tmp:
@@ -86,7 +99,8 @@ def ranks():
                                                      cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=err))
         results = {}
         try:
-            refs = _references()
+            refs = _references(os.path.join(tmp, "single"))
+            refs["dirs"] = {W: os.path.join(tmp, f"w{W}") for W in WORLDS}
             for W, ps in procs.items():
                 out = os.path.join(tmp, f"w{W}")
                 for r, p in enumerate(ps):
@@ -100,16 +114,29 @@ def ranks():
                     if p.poll() is None:
                         p.kill()
                         p.wait()
-    yield results, refs
+        yield results, refs
 
 
 def _jax(t):
     return jnp.asarray(limbs.to_jax_limbs(t))
 
 
-def _references() -> dict:
+def _jax_snark(name: str) -> bytes:
+    """The JAX package's single-device ``prove_snark`` of a worker case (its
+    host route at 2^10 rows); the constraints are the worker's, which use
+    nothing but + and - of the column values."""
+    constraints, degree, cols = worker.inputs(name)
+    transcript = JTranscript()
+    prover = JSystem.prover(transcript, JConstraintSet(constraints, degree), JWitnessLayout(columns=cols.shape[0]),
+                            JTrace.from_columns(_jax(cols)))
+    return j_snark_to_bytes(prover.prove_snark(transcript))
+
+
+def _references(single_dir: str) -> dict:
     """The single-rank port's bytes and the JAX package's (or its recorded
-    digest, where its prove would compile device programs), per case."""
+    digest, where its prove would compile device programs), per case; the
+    single-rank session of each checkpoint case saved where the ranks save
+    theirs, in ``single_dir``."""
     refs = {}
     for n in worker.PCS_LOG_N:
         evals, point, output = worker.inputs(f"pcs{n}")
@@ -131,6 +158,15 @@ def _references() -> dict:
         refs[f"batched{B}x{n}"] = (port, jax)
     x = worker.inputs("ntt")
     refs["ntt"] = limbs.from_jax_limbs(np.asarray(jax_ntt(_jax(x))))
+    for name in worker.SNARKS:
+        refs[name] = (snark_proof_to_bytes(worker.snark_prove(name, worker.CPU)), _jax_snark(name))
+    os.makedirs(single_dir)
+    for case, _, _ in worker.CHECKPOINTS:
+        build, advance, _, _, _ = worker.checkpoint_session(case, worker.CPU)
+        session = build()
+        advance(session)
+        session.save(os.path.join(single_dir, f"{case}.npz"))
+    refs["single_dir"] = single_dir
     return refs
 
 
@@ -195,6 +231,115 @@ def test_stats_show_that_the_sharded_rounds_ran(ranks, W):
         assert rank["gather_rows"]
         assert rank["fri:stats"]["fri_rounds_sharded"] > 0
         assert all(rank[f"batched{B}x{n}:stats"]["rounds_sharded"] > 0 for B, n in worker.BATCHED)
+
+
+@pytest.mark.parametrize("W", WORLDS)
+@pytest.mark.parametrize("name", worker.SNARKS)
+def test_row_sharded_snark_bytes_equal_single_rank_and_jax(ranks, W, name):
+    """The SNARK of tests/test_parallel.py:199 (4 columns) and a width-1
+    SNARK: every rank's proof is the single-rank port's and the JAX
+    package's single-device proof, byte for byte."""
+    got, refs = ranks
+    port, jax = refs[name]
+    assert port == jax
+    for rank in got[W]:
+        assert bytes.fromhex(rank[name]) == port
+
+
+@pytest.mark.parametrize("W", WORLDS)
+def test_stats_show_that_the_sharded_snark_rounds_ran(ranks, W):
+    """A sharded SNARK must not prove unsharded without notice: every rank
+    ran its trace-sumcheck rounds and its PCS rounds on its block."""
+    got, _ = ranks
+    for rank in got[W]:
+        for name in worker.SNARKS:
+            s = rank[f"{name}:stats"]
+            assert s["sc_rounds_sharded"] >= worker.SNARK_LOG_N - 2, s
+            assert s["rounds_sharded"] >= worker.SNARK_LOG_N - 2 and s["fri_rounds_sharded"] > 0, s
+
+
+def _arrays(path: str) -> dict:
+    with np.load(path, allow_pickle=False) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _sidecars(path: str) -> dict:
+    out = {}
+    for ext in (".claim", ".snark"):
+        if os.path.exists(path + ext):
+            with open(path + ext) as f:
+                out[ext] = json.load(f)
+    return out
+
+
+CASES = [c for c, _, _ in worker.CHECKPOINTS]
+
+
+def _uninterrupted(refs, case: str) -> bytes:
+    return refs[dict((c, p) for c, p, _ in worker.CHECKPOINTS)[case]][0]
+
+
+@pytest.mark.parametrize("W", WORLDS)
+@pytest.mark.parametrize("case", CASES)
+def test_sharded_save_writes_the_single_rank_file(ranks, W, case):
+    """A sharded session saved half way writes the file the single-rank
+    session writes at the same round: the same keys, arrays equal element
+    for element, the same sidecars."""
+    _, refs = ranks
+    want = os.path.join(refs["single_dir"], f"{case}.npz")
+    path = os.path.join(refs["dirs"][W], f"{case}.npz")
+    a, b = _arrays(path), _arrays(want)
+    assert sorted(a) == sorted(b)
+    for k in b:
+        assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]), k
+    assert _sidecars(path) == _sidecars(want)
+
+
+@pytest.mark.parametrize("W", WORLDS)
+@pytest.mark.parametrize("case", CASES)
+def test_sharded_checkpoint_resumed_over_the_ranks_gives_the_uninterrupted_proof(ranks, W, case):
+    """The file a sharded session saved, resumed over the same ranks (in the
+    workers), finishes with the uninterrupted proof's bytes."""
+    got, refs = ranks
+    for rank in got[W]:
+        assert bytes.fromhex(rank[case]) == _uninterrupted(refs, case)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_sharded_checkpoint_resumed_on_one_rank_gives_the_uninterrupted_proof(ranks, case):
+    """The file four ranks saved, resumed here on one rank, finishes with
+    the uninterrupted proof's bytes (the two-rank file is the same file:
+    ``test_sharded_save_writes_the_single_rank_file``)."""
+    _, refs = ranks
+    _, _, finish, resume, to_bytes = worker.checkpoint_session(case, worker.CPU)
+    assert to_bytes(finish(resume(os.path.join(refs["dirs"][4], f"{case}.npz"), None))) == _uninterrupted(refs, case)
+
+
+@pytest.mark.parametrize("W", WORLDS)
+def test_trace_tables_block_is_the_single_rank_tables_rows(W):
+    """``ShardedTables.for_trace`` of rank r's cyclic block of the columns
+    is rows t W + r of the single-rank packed table, delta row included."""
+    cols = worker.inputs("snark4")[2]
+    challenges = [Fp(3 + 7 * i) for i in range(worker.SNARK_LOG_N)]
+    whole = SumcheckTables.for_trace(challenges, cols).data
+    for r in range(W):
+        layout = ShardLayout(world=W, rank=r, device="cpu", backend="gloo")
+        block = ShardedTables.for_trace(challenges, layout.cyclic_rows(cols), layout)
+        assert block.height == 1 << worker.SNARK_LOG_N and block.counter == "sc_rounds_sharded"
+        assert torch.equal(block.data, whole[:, r::W])
+
+
+def test_batched_block_of_neither_mode_raises():
+    """Over W ranks the batched PCS takes (B/W, 2^n, 4) whole polynomials or
+    (B, 2^n/W, 4) rows; any other block raises before any collective."""
+    polys, claim = worker.inputs("batched4x8")
+    layout = ShardLayout(world=4, rank=1, device="cpu", backend="gloo")
+    for bad in (polys[:, :128], polys[:2], polys[:3, :64]):
+        with pytest.raises(ValueError, match="whole polynomials .* or .* rows"):
+            BatchedPCSProverSession(claim, bad, Transcript(), worker.CPU, layout)
+    ten = BatchedPCSClaim(claim.inputs, claim.outputs * 2 + claim.outputs[:2])
+    with pytest.raises(ValueError, match="splits evenly"):
+        BatchedPCSProverSession(ten, torch.zeros((2, 256, 4), dtype=torch.int32), Transcript(), worker.CPU, layout)
 
 
 @pytest.mark.parametrize("W", WORLDS)
