@@ -313,12 +313,13 @@ def ops_time_ms(ops) -> float:
 
 
 def count_primitive_ops() -> dict:
-    """Integer instructions of one field multiply, add, subtract, halving and
-    of the three SHA-256 block forms: each probe kernel of csrc/opcount.cu
+    """Integer instructions of one field multiply, add, subtract, halving,
+    reduction of four limb sums and of the three SHA-256 block forms: each
+    probe kernel of csrc/opcount.cu
     less the frame (loads, stores, index arithmetic) it shares with its
     base kernel."""
     probes = sass_int_ops(_build.library_paths["opcount"])
-    need = ("opcount_base", "opcount_mul", "opcount_add", "opcount_sub", "opcount_half",
+    need = ("opcount_base", "opcount_mul", "opcount_add", "opcount_sub", "opcount_half", "opcount_lane_sums",
             "opcount_sha_base", "opcount_sha_block", "opcount_sha_half_block", "opcount_sha_table_block")
     missing = [k for k in need if k not in probes]
     if missing:
@@ -329,6 +330,7 @@ def count_primitive_ops() -> dict:
         "add": ops_vector(probes["opcount_add"]) - base,
         "sub": ops_vector(probes["opcount_sub"]) - base,
         "half": ops_vector(probes["opcount_half"]) - base,
+        "lane_sums": ops_vector(probes["opcount_lane_sums"]) - base,
         # 16 message words; 8 message words and the padding of a 32-byte
         # message; a constant block run from its K + W table
         "sha_block": ops_vector(probes["opcount_sha_block"]) - sha_base,
@@ -491,45 +493,116 @@ def check_kernel(name, label, kernel_fn, plain_fn, n_bytes, n_ops, shapes, timed
     return row
 
 
+def kernel_sass(stem: str, name: str) -> dict:
+    """The instruction counts (``sass_int_ops``) of the kernel function
+    ``name`` (its mangled name, templates included) in a built library."""
+    fns = sass_int_ops(_build.library_paths[stem])
+    found = [c for f, c in fns.items() if f == name or re.match(rf"_Z{len(name)}{name}", f)]
+    if len(found) != 1:
+        raise RuntimeError(f"{name}: {len(found)} matching functions in {stem}'s machine code: {sorted(fns)}")
+    return found[0]
+
+
+def sha_chain_ms(blocks: int) -> float:
+    """The state-dependent part of ``blocks`` SHA-256 compressions one after
+    another, each needing the chaining words of the one before (Fiat-Shamir
+    makes a transcript's compressions one chain), at one instruction a
+    clock: the 64 rounds of a block run from its K + W table
+    (``sha_table_block``).  The message schedule is not on the chain: every
+    message word is known before the absorb starts (``sha_schedule_ops``)."""
+    return blocks * OPS["sha_table_block"].sum() / (PEAK["max_sm_mhz"] * 1e6) * 1e3
+
+
+def sha_schedule_ops(blocks: int) -> np.ndarray:
+    """The instructions of ``blocks`` compressions that need no chaining
+    words - the expansion of W16..W63 and the K + W additions, a full block
+    less a table block - which other threads could do beside the chain."""
+    return blocks * np.maximum(OPS["sha_block"] - OPS["sha_table_block"], 0)
+
+
+def transcript_blocks(fill: int, n_bytes: int) -> int:
+    """Compressions of absorbing ``n_bytes`` at a fill of ``fill`` bytes and
+    of the digest after it (one block, or two when the fill leaves no room
+    for the length)."""
+    total = fill + n_bytes
+    return total // 64 + (1 if total % 64 <= 55 else 2)
+
+
+def round_bound(n_bytes: float, blocks: int, other_ops) -> tuple:
+    """(ms, "bytes" or "operations") of a round kernel, whatever implements
+    it: the compressions' rounds as one chain (``sha_chain_ms``) plus every
+    other integer instruction of the round - the message schedules
+    (``sha_schedule_ops``) among them - at the card's integer rate
+    (``ops_time_ms``), or the bytes over the memory rate if that is longer."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = sha_chain_ms(blocks) + ops_time_ms(other_ops + sha_schedule_ops(blocks))
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def one_clock_ms(instructions: float) -> float:
+    return instructions / (PEAK["max_sm_mhz"] * 1e6) * 1e3
+
+
+# A round with a root, the case of every PCS round: its bytes (the state
+# read and written, the sums, the root, prev in, three scalars and two
+# coefficients out, the digest) and its field operations besides the two
+# reductions (s0, c2, c1, prev', r / 2).
+ROUND_BYTES = 2 * 104 + 64 + 32 + 16 + 48 + 32 + 32
+
+
+def round_other_ops() -> np.ndarray:
+    return (2 * OPS["lane_sums"] + 2 * OPS["mul"] + 4 * OPS["add"] + 4 * OPS["sub"] + 2 * OPS["half"])
+
+
+def round_scalars_inputs(dev, rng, case: int):
+    """A seeded round: a transcript with case % 64 + 64 (case % 3) bytes
+    absorbed, prev at 0 or p - 1 every fifth case, lane sums up to 2^55 - 1,
+    2^63, 2^32 or 1 (and at 0 and 2^63 - 1 every seventh), a root unless
+    case % 4 == 0, and a last element."""
+    lane_cases = ((1 << 55) - 1, 1 << 63, 1 << 32, 1)
+    host = Transcript()
+    host.absorb(rng.bytes(case % 64 + 64 * (case % 3)))
+    state = dtr.state_from_host(host, dev)
+    prev = (0, P - 1)[case % 2] if case % 5 == 0 else int.from_bytes(rng.bytes(16), "little") % P
+    scal = limbs.pack_ints([prev, 0, 0], device=dev)
+    hi = lane_cases[case % 4]
+    sums = torch.from_numpy(rng.integers(0, hi, size=(2, 4), dtype=np.uint64).astype(np.int64)).to(dev)
+    if case % 7 == 0:
+        sums[case % 2].fill_(0 if case % 14 else (1 << 63) - 1)
+    root = torch.from_numpy(rng.integers(0, 2**32, size=8, dtype=np.uint32).view(np.int32)).to(dev)
+    elem = random_field(rng, (2,), dev)
+    return state, scal, sums, (root if case % 4 else None), elem
+
+
+def launch_round_scalars(fn, dev, state, scal, sums, root, elem, mode):
+    """One launch of ``fn`` (the kernel's wrapper, its plain version or a
+    kept kernel) on copies of the inputs; returns every output."""
+    state, scal = state.clone(), scal.clone()
+    digest = torch.zeros(8, dtype=torch.int32, device=dev)
+    coeffs = torch.zeros((2, 4), dtype=torch.int32, device=dev)
+    if mode == "round":
+        fn(state, scal, digest, sums=sums, root=root, coeffs=coeffs)
+    else:
+        fn(state, scal, digest, elem=elem)
+    return state, scal, digest, coeffs
+
+
 def round_scalars_cases(dev, rng, main: dict) -> list:
     """The round-scalars kernel against its plain version on the card; the
     timed row (main["round_scalars"]) is a round that absorbs a root, the
     case of every PCS round, with its device time from a replayed CUDA graph
-    of back-to-back launches.  Its bound is its machine code's instruction
-    count (cuobjdump) at one instruction a clock: one thread, a chain of
-    dependent instructions."""
+    of back-to-back launches.  Its bound is ``round_bound``: the rounds of
+    the two or three compressions as one chain at one instruction a clock,
+    plus the rest at the card's integer rate; ``one_thread_bound_ms`` is the bound of a
+    one-thread implementation (the kept kernel's instructions at one a
+    clock), which the one-thread kernel was held to."""
     rows = []
-    lane_cases = ((1 << 55) - 1, 1 << 63, 1 << 32, 1)
-
-    def inputs(case: int):
-        host = Transcript()
-        host.absorb(rng.bytes(case % 64 + 64 * (case % 3)))
-        state = dtr.state_from_host(host, dev)
-        prev = (0, P - 1)[case % 2] if case % 5 == 0 else int.from_bytes(rng.bytes(16), "little") % P
-        scal = limbs.pack_ints([prev, 0, 0], device=dev)
-        hi = lane_cases[case % 4]
-        sums = torch.from_numpy(rng.integers(0, hi, size=(2, 4), dtype=np.uint64).astype(np.int64)).to(dev)
-        if case % 7 == 0:
-            sums[case % 2].fill_(0 if case % 14 else (1 << 63) - 1)
-        root = torch.from_numpy(rng.integers(0, 2**32, size=8, dtype=np.uint32).view(np.int32)).to(dev)
-        elem = random_field(rng, (2,), dev)
-        return state, scal, sums, (root if case % 4 else None), elem
-
-    def launch(fn, state, scal, sums, root, elem, mode):
-        state, scal = state.clone(), scal.clone()
-        digest = torch.zeros(8, dtype=torch.int32, device=dev)
-        coeffs = torch.zeros((2, 4), dtype=torch.int32, device=dev)
-        if mode == "round":
-            fn(state, scal, digest, sums=sums, root=root, coeffs=coeffs)
-        else:
-            fn(state, scal, digest, elem=elem)
-        return state, scal, digest, coeffs
-
     bad, worst = 0, 0
     for case in range(256):
-        args = inputs(case)
+        args = round_scalars_inputs(dev, rng, case)
         for mode in ("round", "last element"):
-            res = compare(launch(dtr.round_scalars, *args, mode), launch(dtr.round_scalars_plain, *args, mode))
+            res = compare(launch_round_scalars(dtr.round_scalars, dev, *args, mode),
+                          launch_round_scalars(dtr.round_scalars_plain, dev, *args, mode))
             bad += res["mismatches"]
             worst = max(worst, res["max_abs_err"])
     rows.append({"kernel": "round_scalars", "case": "256 seeded states x (round, last element): fills 0-63, "
@@ -537,20 +610,23 @@ def round_scalars_cases(dev, rng, main: dict) -> list:
     if bad:
         raise RuntimeError(f"kernel round_scalars disagrees with its plain version: {rows[-1]}")
 
-    state, scal, sums, root, elem = inputs(1)  # case 1: a root, a fill of 1 + 64 bytes
+    state, scal, sums, root, elem = round_scalars_inputs(dev, rng, 1)  # a root, a fill of 1 + 64 bytes
     digest = torch.empty(8, dtype=torch.int32, device=dev)
     coeffs = torch.empty((2, 4), dtype=torch.int32, device=dev)
-    fns = sass_int_ops(_build.library_paths["round_scalars"])
-    instructions = next(c["all"] for f, c in fns.items() if "round_scalars_kernel" in f)
-    bound_ms = instructions / (PEAK["max_sm_mhz"] * 1e6) * 1e3
+    blocks = transcript_blocks(1, 32 + 32)
+    bound_ms, bound_by = round_bound(ROUND_BYTES, blocks, round_other_ops())
+    one_thread = kernel_sass("prev_round_scalars", "round_scalars_one_thread_kernel")["all"]
     row = {"kernel": "round_scalars", "case": "main: a round with a root",
            "shapes": [[dtr.STATE_WORDS], [2, 4], [8]], "mismatches": 0, "max_abs_err": worst,
            "kernel_ms": graph_ms(lambda: dtr.round_scalars(state, scal, digest, sums=sums, root=root, coeffs=coeffs),
                                  copies=100),
            "plain_ms": time_ms(lambda: dtr.round_scalars_plain(state, scal, digest, sums=sums, root=root,
                                                                 coeffs=coeffs), 5),
-           "bound_ms": bound_ms, "bound_by": "operations", "instructions": instructions}
+           "bound_ms": bound_ms, "bound_by": bound_by, "sha_blocks": blocks,
+           "instructions": kernel_sass("round_scalars", "round_scalars_kernel")["all"],
+           "one_thread_bound_ms": one_clock_ms(one_thread), "one_thread_instructions": one_thread}
     row["bound_share"] = bound_ms / row["kernel_ms"]
+    row["one_thread_bound_share"] = row["one_thread_bound_ms"] / row["kernel_ms"]
     print(json.dumps(row), file=sys.stderr, flush=True)
     main.setdefault("round_scalars", row)
     rows.append(row)
@@ -558,91 +634,164 @@ def round_scalars_cases(dev, rng, main: dict) -> list:
 
 
 def sumcheck_round_instructions(degree: int, fill: int) -> float:
-    """Instructions a standalone round cannot do without, for the one thread
-    that issues at most one a clock whatever the pipe: the d(d+1) multiplies
-    and d^2 additions of rows 1..d of the V^-1 product (row 0 is e0: c0 = s0
-    needs no work), the d multiplies and d additions of Horner,
-    s0 = prev - s1, and the SHA-256 compressions of the absorbed coefficients
-    and of the digest, at the counts of the `bounds` phase.  The reductions
-    of the lane sums and the byte moves are left out: the bound is below the
-    work."""
-    total = fill + 16 * degree
-    blocks = total // 64 + (1 if total % 64 <= 55 else 2)
+    """The bound of a one-thread implementation of a standalone round (the
+    one the one-thread kernel was held to), in instructions at one a clock:
+    the d(d+1) multiplies and d^2 additions of rows 1..d of the V^-1 product
+    (row 0 is e0: c0 = s0 needs no work), the d multiplies and d additions
+    of Horner, s0 = prev - s1, and the SHA-256 compressions of the absorbed
+    coefficients and of the digest, at the counts of the `bounds` phase."""
+    blocks = transcript_blocks(fill, 16 * degree)
     return float((degree * (degree + 1) + degree) * OPS["mul"].sum() + (degree * degree + degree) * OPS["add"].sum()
                  + OPS["sub"].sum() + blocks * OPS["sha_block"].sum())
+
+
+def sumcheck_round_bound(degree: int, fill: int) -> tuple:
+    """``round_bound`` of a standalone round: V^-1, the sums, the
+    coefficients, prev, r, the state and the digest once each; the d(d+1)
+    multiplies and d^2 additions of rows 1..d of V^-1, the d multiplies and
+    d additions of p(r), the d reductions and s0 besides the chain."""
+    n_bytes = 16 * (degree + 1) ** 2 + 32 * degree + 16 * degree + 2 * 16 + 16 + 2 * 104 + 32
+    other = (degree * OPS["lane_sums"] + (degree * (degree + 1) + degree) * OPS["mul"]
+             + (degree * degree + degree) * OPS["add"] + OPS["sub"])
+    return round_bound(n_bytes, transcript_blocks(fill, 16 * degree), other)
 
 
 # total degrees of the standalone round's checks above the usual ones: the
 # cap of 16 that the kernel once had, each side of it, and well past it
 HIGH_DEGREES = (3, 16, 17, 33, 64)
-# the degrees timed: P4's round (the main row), and two past the old cap
-TIMED_DEGREES = (3, 17, 64)
+# the degrees timed: P4's round (the main row), two past the old cap, and one
+# above the block's 256 threads (a seeded random matrix in V^-1's place)
+TIMED_DEGREES = (3, 17, 64, 1100)
+# above the block's thread count, with a seeded random (d+1, d+1) matrix in
+# V^-1's place (the host's Gauss-Jordan inverse is O(d^3) in Python): 1,100,
+# and 2,047, the largest degree whose plain version (pure Python over the
+# (d+1)^2 products) finishes in a few seconds on the host - about 5.5 s; the
+# card's limit, about 7,260, would take some 13 times as long
+RANDOM_MATRIX_DEGREES = ((1100, 2), (2047, 1))
+
+
+def sumcheck_inputs(dev, rng, case: int, degree: int):
+    """A seeded standalone round: a transcript with case % 64 + 64 (case % 3)
+    bytes absorbed, prev at 0 or p - 1 every fifth case, lane sums up to
+    2^55 - 1, 2^63, 2^32 or 1 (one row at 0 or 2^63 - 1 every seventh case),
+    and V^-1 for d <= 64, a seeded random matrix in its place above."""
+    lane_cases = ((1 << 55) - 1, 1 << 63, 1 << 32, 1)
+    host = Transcript()
+    host.absorb(rng.bytes(case % 64 + 64 * (case % 3)))
+    prev = (0, P - 1)[case % 2] if case % 5 == 0 else int.from_bytes(rng.bytes(16), "little") % P
+    sums = torch.from_numpy(rng.integers(0, lane_cases[case % 4], size=(degree, 4),
+                                         dtype=np.uint64).astype(np.int64)).to(dev)
+    if case % 7 == 0:
+        sums[case % degree].fill_(0 if case % 14 else (1 << 63) - 1)
+    vinv = vandermonde_inv(degree + 1, dev) if degree <= 64 else full_random_field(rng, (degree + 1, degree + 1), dev)
+    return dtr.state_from_host(host, dev), limbs.pack_int(prev, device=dev), sums, vinv
+
+
+def launch_sumcheck_round(fn, dev, state, prev, sums, vinv):
+    """One launch of ``fn`` on copies of the state and prev; every output."""
+    state, prev = state.clone(), prev.clone()
+    digest = torch.zeros(8, dtype=torch.int32, device=dev)
+    coeffs = torch.zeros((sums.shape[0], 4), dtype=torch.int32, device=dev)
+    r = torch.zeros(4, dtype=torch.int32, device=dev)
+    fn(state, prev, digest, sums, vinv, coeffs, r)
+    return state, prev, digest, coeffs, r
+
+
+def sumcheck_round_at_the_limit(dev, rng) -> dict:
+    """The kernel at the card's degree limit, where its plain version would
+    take minutes: V^-1's place holds a seeded sparse matrix (row j has one
+    nonzero a_j in a seeded column pi(j)), so c_j = a_j ev[pi(j)], and the
+    reference is the host's own arithmetic and transcript over those d
+    products (an independent reference, not the plain version)."""
+    degree = dtr.sumcheck_degree_limit(dev)
+    n = degree + 1
+    state, prev, sums, _ = sumcheck_inputs(dev, rng, 61, 2)  # a fill of 61 + 64 bytes
+    sums = torch.from_numpy(rng.integers(0, 1 << 63, size=(degree, 4), dtype=np.uint64).astype(np.int64)).to(dev)
+    cols = rng.permutation(n)[:degree]
+    a = full_random_field(rng, (degree,), dev)
+    vinv = torch.zeros((n, n, 4), dtype=torch.int32, device=dev)
+    vinv[torch.arange(1, n, device=dev), torch.from_numpy(cols).to(dev)] = a
+    got = launch_sumcheck_round(dtr.sumcheck_round_scalars, dev, state, prev, sums, vinv)
+    torch.cuda.synchronize()
+    ev = [ops.limb_sums_to_int(lanes) for lanes in sums.cpu().tolist()]
+    ev = [(limbs.unpack_int(prev.cpu()) - ev[0]) % P] + ev
+    c = [ev[0]] + [int(x) * ev[int(i)] % P for x, i in zip(limbs.unpack_ints(a.cpu()), cols)]
+    want_state = dtr.absorb(state.cpu(), b"".join(x.to_bytes(16, "little") for x in c[1:]))
+    d = dtr.digest(want_state)
+    r = int.from_bytes(d[:16], "little") % P
+    acc = 0
+    for x in reversed(c):
+        acc = (acc * r + x) % P
+    want = (want_state, limbs.pack_int(acc), torch.from_numpy(np.frombuffer(d, dtype=">u4").astype(np.uint32)
+                                                               .view(np.int32)), limbs.pack_ints(c[1:]),
+            limbs.pack_int(r))
+    res = compare(tuple(t.cpu() for t in got), want)
+    row = {"kernel": "sumcheck_round_scalars", "case": f"the card's degree limit, {degree}: a seeded sparse matrix "
+           "in V^-1's place, against the host's arithmetic and transcript (the plain version would take minutes)",
+           "degree": degree, **res,
+           "kernel_ms": time_ms(lambda: launch_sumcheck_round(dtr.sumcheck_round_scalars, dev, state, prev, sums,
+                                                               vinv), 3),
+           "shared_bytes": 32 * n}
+    print(json.dumps(row), file=sys.stderr, flush=True)
+    del vinv
+    torch.cuda.empty_cache()
+    return row
 
 
 def sumcheck_round_scalars_cases(dev, rng, main: dict) -> list:
     """The standalone round mode against its plain version on the card over
     seeded transcript states (fills 0-63, one to three blocks absorbed
-    before), total degrees 2-8 and ``HIGH_DEGREES``, lane sums to 2^63 - 1
-    and prev at 0 and p - 1; the timed rows are P4's round (degree 3, the
-    main row) and degrees 17 and 64, each with its device time from a
-    replayed CUDA graph of back-to-back launches and its bound
-    `sumcheck_round_instructions` at one instruction a clock."""
-    lane_cases = ((1 << 55) - 1, 1 << 63, 1 << 32, 1)
-
-    def inputs(case: int, degree: int):
-        host = Transcript()
-        host.absorb(rng.bytes(case % 64 + 64 * (case % 3)))
-        prev = (0, P - 1)[case % 2] if case % 5 == 0 else int.from_bytes(rng.bytes(16), "little") % P
-        sums = torch.from_numpy(rng.integers(0, lane_cases[case % 4], size=(degree, 4),
-                                             dtype=np.uint64).astype(np.int64)).to(dev)
-        if case % 7 == 0:
-            sums[case % degree].fill_(0 if case % 14 else (1 << 63) - 1)
-        return (dtr.state_from_host(host, dev), limbs.pack_int(prev, device=dev), sums,
-                vandermonde_inv(degree + 1, dev))
-
-    def launch(fn, state, prev, sums, vinv):
-        state, prev = state.clone(), prev.clone()
-        digest = torch.zeros(8, dtype=torch.int32, device=dev)
-        coeffs = torch.zeros((sums.shape[0], 4), dtype=torch.int32, device=dev)
-        r = torch.zeros(4, dtype=torch.int32, device=dev)
-        fn(state, prev, digest, sums, vinv, coeffs, r)
-        return state, prev, digest, coeffs, r
-
+    before), total degrees 2-8, ``HIGH_DEGREES`` and
+    ``RANDOM_MATRIX_DEGREES``, lane sums to 2^63 - 1 and prev at 0 and
+    p - 1, then at the card's degree limit; the timed rows are P4's round
+    (degree 3, the main row) and ``TIMED_DEGREES``, each with its device
+    time from a replayed CUDA graph of back-to-back launches, its bound
+    ``sumcheck_round_bound`` and the one-thread bound of earlier PRs
+    (``sumcheck_round_instructions`` at one a clock)."""
     bad, worst, n = 0, 0, 0
-    for degree, states in [(d, 64) for d in range(2, 9)] + [(d, 16) for d in HIGH_DEGREES]:
+    for degree, states in ([(d, 64) for d in range(2, 9)] + [(d, 16) for d in HIGH_DEGREES]
+                           + list(RANDOM_MATRIX_DEGREES)):
         for case in range(states):
-            args = inputs(case, degree)
-            res = compare(launch(dtr.sumcheck_round_scalars, *args), launch(dtr.sumcheck_round_scalars_plain, *args))
+            args = sumcheck_inputs(dev, rng, case, degree)
+            res = compare(launch_sumcheck_round(dtr.sumcheck_round_scalars, dev, *args),
+                          launch_sumcheck_round(dtr.sumcheck_round_scalars_plain, dev, *args))
             bad += res["mismatches"]
             worst = max(worst, res["max_abs_err"])
             n += 1
-    rows = [{"kernel": "sumcheck_round_scalars", "case": f"{n} launches: 64 seeded states x total degrees 2-8 and "
-             f"16 x degrees {', '.join(map(str, HIGH_DEGREES))}; fills 0-63, lanes to 2^63 - 1, prev 0 and p-1",
+    rows = [{"kernel": "sumcheck_round_scalars", "case": f"{n} launches: 64 seeded states x total degrees 2-8, "
+             f"16 x degrees {', '.join(map(str, HIGH_DEGREES))} and, with a seeded random matrix in V^-1's place, "
+             + ", ".join(f"{s} x degree {d}" for d, s in RANDOM_MATRIX_DEGREES)
+             + "; fills 0-63, lanes to 2^63 - 1, prev 0 and p-1",
              "mismatches": bad, "max_abs_err": worst,
              "degree_limit_of_this_card": dtr.sumcheck_degree_limit(dev)}]
     if bad:
         raise RuntimeError(f"kernel sumcheck_round_scalars disagrees with its plain version: {rows[-1]}")
+    rows.append(sumcheck_round_at_the_limit(dev, rng))
+    if rows[-1]["mismatches"]:
+        raise RuntimeError(f"kernel sumcheck_round_scalars disagrees with the host at its degree limit: {rows[-1]}")
 
     for degree in TIMED_DEGREES:
-        state, prev, sums, vinv = inputs(1, degree)  # a fill of 1 + 64 bytes
+        state, prev, sums, vinv = sumcheck_inputs(dev, rng, 1, degree)  # a fill of 1 + 64 bytes
         digest = torch.empty(8, dtype=torch.int32, device=dev)
         coeffs = torch.empty((degree, 4), dtype=torch.int32, device=dev)
         r = torch.empty(4, dtype=torch.int32, device=dev)
-        instructions = sumcheck_round_instructions(degree, 1)
-        bound_ms = instructions / (PEAK["max_sm_mhz"] * 1e6) * 1e3
+        bound_ms, bound_by = sumcheck_round_bound(degree, 1)
         row = {"kernel": "sumcheck_round_scalars",
                "case": "main: a degree-3 round (P4)" if degree == 3 else f"a degree-{degree} round",
                "shapes": [[dtr.STATE_WORDS], [degree, 4], [degree + 1, degree + 1, 4]], "mismatches": 0,
                "max_abs_err": worst,
                "kernel_ms": graph_ms(lambda: dtr.sumcheck_round_scalars(state, prev, digest, sums, vinv, coeffs, r),
-                                     copies=100),
+                                     copies=100 if degree <= 64 else 10),
                "plain_ms": time_ms(lambda: dtr.sumcheck_round_scalars_plain(state, prev, digest, sums, vinv, coeffs,
-                                                                            r), 5),
-               "bound_ms": bound_ms, "bound_by": "operations", "instructions": instructions}
+                                                                            r), 5 if degree <= 64 else 1),
+               "bound_ms": bound_ms, "bound_by": bound_by, "sha_blocks": transcript_blocks(1, 16 * degree),
+               "one_thread_bound_ms": one_clock_ms(sumcheck_round_instructions(degree, 1))}
         row["bound_share"] = bound_ms / row["kernel_ms"]
+        row["one_thread_bound_share"] = row["one_thread_bound_ms"] / row["kernel_ms"]
         print(json.dumps(row), file=sys.stderr, flush=True)
         main.setdefault("sumcheck_round_scalars" if degree == 3 else f"sumcheck_round_scalars/degree {degree}", row)
         rows.append(row)
+        del vinv
     return rows
 
 
@@ -1004,13 +1153,70 @@ def kernels_phase(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def routes_phase(dev, log_n: int = 24, log_b: int = BATCHED_LOG_SIZES[-1]) -> None:
+# the standalone rounds the routes phase times: P4's, 17, the degree path's
+# (x^17 - x: total degree 18, read by the degree phase) and one well past the
+# one-thread kernel's cap of earlier PRs
+ROUTE_DEGREES = (3, 17, 18, 64)
+
+
+def round_kernel_routes(dev) -> list:
+    """The round kernels beside the one-thread kernels they replaced
+    (``previous_routes``), at the main round of ``round_scalars`` (a root, a
+    fill of 1 + 64 bytes) and standalone rounds of ``ROUTE_DEGREES``: the
+    outputs held equal, then each timed three times as a replayed CUDA graph
+    of 100 launches, the routes in turns (old, new, new, old, old, new)."""
+    rng = np.random.default_rng(11)
+    rows = []
+
+    def timed(routes: dict, label: str, extra: dict) -> None:
+        ms = {name: [] for name in routes}
+        for rep in range(3):
+            for name in (list(routes) if rep % 2 == 0 else list(routes)[::-1]):
+                ms[name].append(graph_ms(routes[name], copies=100))
+        old, new = ms["old"], ms["new"]
+        row = {"kernel": label, **extra, "old_route": "one thread (prev_round_scalars.cu)", "old_ms": old,
+               "new_route": "round_scalars.cu", "new_ms": new,
+               "new_over_old": float(np.median(new) / np.median(old)),
+               "spread_ms": max(max(old) - min(old), max(new) - min(new))}
+        rows.append(row)
+        print(json.dumps(row), file=sys.stderr, flush=True)
+
+    state, scal, sums, root, elem = round_scalars_inputs(dev, rng, 1)
+    for mode in ("round", "last element"):
+        res = compare(launch_round_scalars(previous_routes.round_scalars_one_thread, dev, state, scal, sums, root,
+                                           elem, mode),
+                      launch_round_scalars(dtr.round_scalars, dev, state, scal, sums, root, elem, mode))
+        if res["mismatches"]:
+            raise RuntimeError(f"round_scalars disagrees with the kernel it replaced ({mode}): {res}")
+    digest = torch.empty(8, dtype=torch.int32, device=dev)
+    coeffs = torch.empty((2, 4), dtype=torch.int32, device=dev)
+    timed({"old": lambda: previous_routes.round_scalars_one_thread(state, scal, digest, sums=sums, root=root,
+                                                                    coeffs=coeffs),
+           "new": lambda: dtr.round_scalars(state, scal, digest, sums=sums, root=root, coeffs=coeffs)},
+          "round_scalars", {"case": "main: a round with a root"})
+    kernels = {"old": previous_routes.sumcheck_round_scalars_one_thread, "new": dtr.sumcheck_round_scalars}
+    for degree in ROUTE_DEGREES:
+        state, prev, sums, vinv = sumcheck_inputs(dev, rng, 1, degree)
+        res = compare(*(launch_sumcheck_round(fn, dev, state, prev, sums, vinv) for fn in kernels.values()))
+        if res["mismatches"]:
+            raise RuntimeError(f"sumcheck_round_scalars at degree {degree} disagrees with the kernel it replaced: {res}")
+        digest = torch.empty(8, dtype=torch.int32, device=dev)
+        coeffs = torch.empty((degree, 4), dtype=torch.int32, device=dev)
+        r = torch.empty(4, dtype=torch.int32, device=dev)
+        timed({name: (lambda fn=fn: fn(state, prev, digest, sums, vinv, coeffs, r)) for name, fn in kernels.items()},
+              "sumcheck_round_scalars", {"case": f"a degree-{degree} round", "degree": degree})
+    return rows
+
+
+def routes_phase(dev, log_n: int = 24, log_b: int = BATCHED_LOG_SIZES[-1]) -> list:
     """Time, at the shapes of the 2^log_n prove, the route through each
     later kernel beside the route that stood in for it before: six composed
     here from the first four kernels (``mul``, ``sub``, ``butterfly``,
     ``fold_commit_leaves``), and the redesigned Merkle hashing and Moebius
     transform beside the kernels they replaced (``previous_routes``); then
-    the batched encode as one batch beside a loop over its polynomials.
+    the batched encode as one batch beside a loop over its polynomials, and
+    the round kernels beside their one-thread forms (``round_kernel_routes``,
+    whose rows it returns).
     ``bound_ms`` is the bytes the new route has to move over the card's
     memory rate."""
     rng = np.random.default_rng(7)
@@ -1266,9 +1472,11 @@ def routes_phase(dev, log_n: int = 24, log_b: int = BATCHED_LOG_SIZES[-1]) -> No
     del polys
     clear_caches()
     torch.cuda.empty_cache()
+    round_rows = round_kernel_routes(dev)
     emit("routes", log_n=log_n, routes=rows, kron_parts=kron_parts, merkle_block_widths=widths,
          zm_passes_alone=zm_alone,
-         batched_encode={"shape": [BATCH_POLYS, 1 << log_b], **encode})
+         batched_encode={"shape": [BATCH_POLYS, 1 << log_b], **encode}, round_kernels=round_rows)
+    return round_rows
 
 
 def profile_phase(dev, label: str, prove) -> None:
@@ -1554,23 +1762,29 @@ def snark_phase(dev):
     return {r["path"]: r["proof_sha256"] for r in results}, {r["path"]: r["peak_device_bytes"] for r in results}
 
 
-def profile_snark_rounds(dev, label: str, kind: str, log_n: int) -> None:
-    """One traced run of a SNARK path's sumcheck rounds alone: device
-    kernels per round (every launch, the tensor code's too) and the card's
-    busy share while the host issues them."""
+def traced_sumcheck_rounds(session):
+    """A session's sumcheck rounds alone under the profiler: (rounds, wall
+    s, the device's kernels as ``key_averages`` entries)."""
     from torch.profiler import ProfilerActivity, profile
 
-    config = ProverConfig(device=str(dev))
-    trace = snark_trace(kind, log_n, dev)
-    session = SnarkProverSession(Transcript(), *snark_constraints(kind, trace.width), trace, config=config)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         rounds = session.launch_sumcheck_rounds()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    ev = [e for e in prof.key_averages() if e.device_time_total > 0 and
-          e.device_type == torch.autograd.DeviceType.CUDA]
+    return rounds, wall, [e for e in prof.key_averages() if e.device_time_total > 0 and
+                          e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def profile_snark_rounds(dev, label: str, kind: str, log_n: int) -> None:
+    """One traced run of a SNARK path's sumcheck rounds alone: device
+    kernels per round (every launch, the tensor code's too) and the card's
+    busy share while the host issues them."""
+    config = ProverConfig(device=str(dev))
+    trace = snark_trace(kind, log_n, dev)
+    session = SnarkProverSession(Transcript(), *snark_constraints(kind, trace.width), trace, config=config)
+    rounds, wall, ev = traced_sumcheck_rounds(session)
     busy = sum(e.device_time_total for e in ev) / 1e6
     kernels = sum(e.count for e in ev)
     emit("profile_sumcheck_rounds", path=label, rounds=rounds, traced_rounds_s=wall, device_busy_s=busy,
@@ -1700,6 +1914,73 @@ def resume_pcs_only(path: str) -> int:
     return 0
 
 
+FIRST_SNARK = ("pythagorean", 16)  # P4's constraints at 2^16 rows
+
+
+def first_snark_only() -> int:
+    """``--first-snark``: in this (new) process, the first SNARK prove
+    (``FIRST_SNARK``) with no PCS prove and no kernel launch before it (the
+    trace is made on the host; the kernels load at the prove's first
+    launch), then a second prove of the same trace.  Times the card's
+    context, each prove's phases and the first launch of
+    ``sumcheck_round_scalars`` apart (the card synchronised before and after
+    it); prints one JSON line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
+        return 2
+    start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    torch.zeros(1, device=dev)
+    torch.cuda.synchronize()
+    context_s = time.perf_counter() - start
+    kind, log_n = FIRST_SNARK
+    trace = snark_trace(kind, log_n, "cpu").to(dev)
+    first = {}
+    kernel = dtr.sumcheck_round_scalars
+
+    def first_timed(*args):
+        if first:
+            return kernel(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kernel(*args)
+        torch.cuda.synchronize()
+        first["s"] = time.perf_counter() - t0
+
+    dtr.sumcheck_round_scalars = first_timed
+    config = ProverConfig(device=str(dev))
+    proves = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with collect_phases() as phases:
+            t0 = time.perf_counter()
+            proof = snark_prove(kind, trace, config)
+            torch.cuda.synchronize()
+            prove_s = time.perf_counter() - t0
+        proves.append({"prove_s": prove_s, "phases_s": dict(phases),
+                       "proof_sha256": hashlib.sha256(snark_proof_to_bytes(proof)).hexdigest()})
+    print(json.dumps({"phase": "first_snark_in_a_fresh_process", "kind": kind, "log_n": log_n,
+                      "context_s": context_s, "kernels_built_in_this_process": bool(_build.build_log),
+                      "first_sumcheck_round_scalars_launch_s": first["s"], "proves": proves,
+                      "wall_s": time.perf_counter() - start}), flush=True)
+    return 0
+
+
+def first_snark_phase() -> None:
+    """ROADMAP C-u1: ``--first-snark`` in a new process; its two proofs must
+    agree."""
+    res = subprocess.run([sys.executable, os.path.abspath(__file__), "--first-snark"],
+                         capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("{")]
+    if res.returncode != 0 or not lines:
+        raise RuntimeError(f"--first-snark failed ({res.returncode}): {res.stderr[-2000:]}")
+    run = json.loads(lines[-1])
+    shas = {p["proof_sha256"] for p in run["proves"]}
+    if len(shas) != 1:
+        raise RuntimeError(f"the two SNARK proves of a fresh process differ: {shas}")
+    emit("first_snark", **{k: v for k, v in run.items() if k != "phase"})
+
+
 def checkpoint_phase(dev, pcs_log_n: int, batched_log_n: int, pcs_sha: str, batched_sha: str,
                      snark_shas: dict, keep_dir: str):
     """Each of the three sessions saved about half way and resumed: the PCS
@@ -1780,10 +2061,13 @@ def power_constraint(e: int):
     return constraint
 
 
-def degree_phase(dev) -> None:
+def degree_phase(dev, round_routes: list) -> None:
     """A SNARK whose constraint has degree DEGREE, over one column of
     2^DEGREE_LOG_N bits (numpy seed 5000): proved on the card and on the
-    CPU's plain path, the bytes equal, and verified."""
+    CPU's plain path, the bytes equal, and verified; then its sumcheck
+    rounds once more on the card under the profiler (device time, the
+    round kernel's part, and the same with the one-thread kernel's time a
+    round from ``round_routes``, the routes phase's rows, in its place)."""
     bits = np.random.default_rng(5000).integers(0, 2, size=1 << DEGREE_LOG_N).astype(np.uint64)
     cs, layout = ConstraintSet([power_constraint(DEGREE)], DEGREE), WitnessLayout(columns=1)
     out, secs = {}, {}
@@ -1803,9 +2087,21 @@ def degree_phase(dev) -> None:
     System.verifier(transcript, cs, layout, Commitment(), DEGREE_LOG_N).verify_snark(
         transcript, snark_proof_from_bytes(out[str(dev)]))
     ok = out[str(dev)] == out["cpu"]
+    session = SnarkProverSession(Transcript(), cs, layout, Trace.from_columns([bits], str(dev)),
+                                 config=ProverConfig(device=str(dev)))
+    rounds, wall, ev = traced_sumcheck_rounds(session)
+    del session
+    busy = sum(e.device_time_total for e in ev) / 1e6
+    kernel = [e for e in ev if "sumcheck_round_scalars" in e.key]
+    kernel_s = sum(e.device_time_total for e in kernel) / 1e6
+    one_thread_ms = [float(np.median(r["old_ms"])) for r in round_routes if r.get("degree") == DEGREE + 1]
+    rounds_device = {"rounds": rounds, "traced_rounds_s": wall, "device_busy_s": busy,
+                     "round_kernel_device_s": kernel_s, "round_kernel_launches": sum(e.count for e in kernel),
+                     "with_the_one_thread_kernel_s": (busy - kernel_s + rounds * one_thread_ms[0] / 1e3
+                                                      if one_thread_ms else None)}
     emit("degree", path=DEGREE_PATH, round_total_degree=DEGREE + 1, card_prove_s=secs[str(dev)],
          cpu_prove_s=secs["cpu"], proof_bytes=len(out["cpu"]), card_equals_cpu=ok,
-         sha256=hashlib.sha256(out[str(dev)]).hexdigest(), verified=True)
+         sha256=hashlib.sha256(out[str(dev)]).hexdigest(), verified=True, sumcheck_rounds_device=rounds_device)
     if not ok:
         raise RuntimeError("the degree-17 SNARK's bytes differ between the card and the CPU")
 
@@ -2310,6 +2606,9 @@ def main() -> int:
     ap.add_argument("--resume-pcs", metavar="PATH",
                     help="only resume the PCS session saved at PATH, finish it and print its SHA-256 "
                          "(the checkpoint phase runs this in a fresh process)")
+    ap.add_argument("--first-snark", action="store_true",
+                    help="only time the first SNARK prove of this process (the first_snark phase runs this "
+                         "in a fresh process)")
     ap.add_argument("--sharded-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--sharded-world", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--sharded-port", type=int, help=argparse.SUPPRESS)
@@ -2321,6 +2620,8 @@ def main() -> int:
                                  args.sharded_dir)
     if args.resume_pcs:
         return resume_pcs_only(args.resume_pcs)
+    if args.first_snark:
+        return first_snark_only()
     log_sizes = sorted(int(x) for x in args.log_sizes.split(","))
     batched_sizes = sorted(int(x) for x in args.batched_log_sizes.split(","))
     if not torch.cuda.is_available():
@@ -2351,7 +2652,7 @@ def main() -> int:
     OPS.update(counted["ops"])
     spent = {}
     for stem in ("sha256_words", "sha256_leaves", "merkle_levels", "prev_sha256_words", "fold_commit",
-                 "fold", "mul", "kron", "prev_kron", "twiddle_mul3", "zm", "round_scalars"):
+                 "fold", "mul", "kron", "prev_kron", "twiddle_mul3", "zm", "round_scalars", "prev_round_scalars"):
         for fn, c in sass_int_ops(_build.library_paths[stem]).items():
             spent[f"{stem}:{fn}"] = {k: c[k] for k in ("alu", "fma", "either", "int", "all")}
     emit("bounds", peak_bytes_per_s=PEAK_BYTES_PER_S, **PEAK,
@@ -2361,15 +2662,16 @@ def main() -> int:
          command="cuobjdump -sass multilinear_tpu_torch/build/libopcount-*.so",
          probes=counted["probes"], kernels_as_built=spent, clocks=clock_under_load(dev))
 
+    first_snark_phase()
     timed = kernels_phase(dev)
-    routes_phase(dev, log_sizes[-1], batched_sizes[-1])
+    round_routes = routes_phase(dev, log_sizes[-1], batched_sizes[-1])
     pcs_sha, pcs_peak = pcs_phase(dev, log_sizes)
     batched_sha = batched_pcs_phase(dev, batched_sizes)
     snark_shas, snark_peaks = snark_phase(dev)
     with tempfile.TemporaryDirectory() as kept:
         checkpoint_paths, single_files = checkpoint_phase(dev, log_sizes[-1], batched_sizes[-1], pcs_sha,
                                                           batched_sha, snark_shas, kept)
-        degree_phase(dev)
+        degree_phase(dev, round_routes)
         api_phase(dev)
         sharded_paths = sharded_phase(dev, log_sizes[-1], batched_sizes[-1], pcs_sha, batched_sha, pcs_peak,
                                       snark_shas, snark_peaks, single_files)
@@ -2413,6 +2715,7 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "shapes": row["shapes"], "bound_share": row["bound_share"],
+            **({"one_thread_bound_ms": row["one_thread_bound_ms"]} if "one_thread_bound_ms" in row else {}),
         })
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:

@@ -188,3 +188,36 @@ __device__ __forceinline__ fp fp_mul(fp a, fp b) {
   s.lo = lo2;
   return fp_canon(s, 0ull);
 }
+
+// sum_i lanes[i] * 2^(32 i) mod p, for four unsigned 64-bit lanes (the
+// int64 limb sums of ops.sum_limbs: each below 2^63).
+__device__ __forceinline__ fp reduce_lane_sums(const unsigned long long* lanes) {
+  const u64 m32 = 0xFFFFFFFFull;
+  u64 acc[5];
+  acc[0] = lanes[0] & m32;
+  acc[1] = (lanes[0] >> 32) + (lanes[1] & m32);
+  acc[2] = (lanes[1] >> 32) + (lanes[2] & m32);
+  acc[3] = (lanes[2] >> 32) + (lanes[3] & m32);
+  acc[4] = lanes[3] >> 32;
+  u32 w[5];
+  u64 c = 0;
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+    u64 v = acc[i] + c;
+    w[i] = (u32)v;
+    c = v >> 32;
+  }
+  // value = lo + 2^128 * hi with hi < 2^34; 2^128 = K (mod p), K * hi < 2^80
+  fp t;
+  const u64 hi = (u64)w[4] | (c << 32);
+  const u64 klo = FP_K * hi, khi = __umul64hi(FP_K, hi);
+  const u64 lo_hi = ((u64)w[3] << 32) | w[2];
+  t.lo = (((u64)w[1] << 32) | w[0]) + klo;
+  t.hi = lo_hi + khi + (u64)(t.lo < klo);
+  if (t.hi < lo_hi) {  // a carry out of 128 bits: t < 2^80, and 2^128 = K
+    fp u;
+    fp_add_k(t, u);
+    t = u;
+  }
+  return fp_canon(t, 0ull);
+}

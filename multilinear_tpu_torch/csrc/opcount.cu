@@ -36,6 +36,13 @@ __global__ void opcount_half(const void* a, const void* b, void* out) {
   fp_store(out, 2 * i + 1, fp_load(b, i));
 }
 
+// the four unreduced int64 limb sums of one element (two 16-byte loads)
+// reduced mod p (ops.sum_limbs' lanes, as the round kernels take them)
+__global__ void opcount_lane_sums(const void* a, const void* b, void* out) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  fp_store(out, i, reduce_lane_sums(reinterpret_cast<const unsigned long long*>(a) + 4 * i));
+}
+
 // load a state and 16 message words, store them: the frame around the
 // SHA-256 probes
 __global__ void opcount_sha_base(const u32* msg, u32* out) {

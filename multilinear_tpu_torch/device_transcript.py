@@ -10,16 +10,18 @@ digest the device computed.  No round waits for the host.
 
 State: one int32 tensor of ``STATE_WORDS`` = 26 words - 8 SHA-256 chaining
 words, the 64-byte partial block as 16 big-endian words (zero at and past
-the fill), the fill in bytes and the total length in bytes.  Absorbs are
-byte-granular: any midstate hops, whatever the host absorbed before (the
-JAX package's device transcript takes word-aligned midstates only).
+the fill), the fill in bytes and the total length in bytes.  Any byte
+fill is taken: any midstate hops, whatever the host absorbed before (the
+JAX package's device transcript takes word-aligned midstates only).  The
+kernels absorb whole 32-bit words, shifted into place when the fill is not
+a multiple of 4.
 
 The standalone sumcheck (``sumcheck.DeviceSumcheckRounds``) has rounds of
 its own schedule - no roots, any total degree, interpolation through
 V^-1 - and a second entry of the same kernel source,
 :func:`sumcheck_round_scalars`.  Its plain version takes any degree; the
-kernel takes any degree whose round fits in a block's shared memory
-(:func:`sumcheck_degree_limit`, in the thousands on an H100).
+kernel (one block) takes any degree whose round fits in a block's shared
+memory (:func:`sumcheck_degree_limit`, in the thousands on an H100).
 
 The functions here are plain Python over that tensor - what the CPU runs,
 and what the kernels are held against.  ``round_scalars`` and

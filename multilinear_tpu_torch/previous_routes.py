@@ -4,11 +4,13 @@
 once per Merkle level), ``csrc/prev_zm.cu`` (a 2^11-element tile run stage
 by stage through shared memory, three passes at 2^22-2^24) and
 ``csrc/prev_kron.cu`` (one thread per output element, a division and two
-loads each) stay compiled under their first symbols so that
-``chip_smoke.py``'s ``routes`` phase can time the routes they served - byte
-swap + concatenation + message hash, a launch per tree level, three Moebius
-passes + gather + padded copy, the tensor product - beside the kernels that
-replaced them, on the same card in the same run.  ``kron_parts`` launches the
+loads each) stay compiled under their first symbols, and
+``csrc/prev_round_scalars.cu`` (the rounds' Fiat-Shamir scalars on one
+thread) under symbols of its own, so that ``chip_smoke.py``'s ``routes``
+phase can time the routes they served - byte swap + concatenation + message
+hash, a launch per tree level, three Moebius passes + gather + padded copy,
+the tensor product, a round's scalars - beside the kernels that replaced
+them, on the same card in the same run.  ``kron_parts`` launches the
 current tensor-product kernel less one part (its stores alone, its
 multiplies alone), so that the same phase can show what binds it.  Nothing
 else imports this module and no prover path reaches it.  The functions
@@ -104,3 +106,29 @@ def kron_parts(mode: str, a: torch.Tensor, b: torch.Tensor, out: torch.Tensor) -
     code = {"stores": 1, "multiplies": 2}[mode]
     _call("mlt_kron_parts", a.device, code, a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel() // 4, b.shape[0])
     return out
+
+
+def round_scalars_one_thread(state: torch.Tensor, scal: torch.Tensor, digest_out: torch.Tensor,
+                             sums=None, root=None, elem=None, coeffs=None) -> None:
+    """``device_transcript.round_scalars`` on one thread; CUDA tensors that
+    the wrapper there has checked."""
+    if state.device.type != "cuda":
+        raise ValueError("previous_routes.round_scalars_one_thread: CUDA tensors expected")
+    ptr = (lambda t: t.data_ptr() if t is not None else None)
+    _call("mlt_round_scalars_one_thread", state.device, ptr(state), ptr(root), ptr(elem), ptr(sums), ptr(scal),
+          ptr(coeffs), ptr(digest_out))
+
+
+def _sumcheck_round(symbol: str, state, prev, digest_out, sums, vinv, coeffs, r_out) -> None:
+    if state.device.type != "cuda":
+        raise ValueError(f"previous_routes: {symbol} takes CUDA tensors")
+    _call(symbol, state.device, state.data_ptr(), sums.data_ptr(), vinv.data_ptr(), sums.shape[0],
+          prev.data_ptr(), coeffs.data_ptr(), r_out.data_ptr(), digest_out.data_ptr())
+
+
+def sumcheck_round_scalars_one_thread(state, prev, digest_out, sums, vinv, coeffs, r_out) -> None:
+    """``device_transcript.sumcheck_round_scalars`` on one thread (total
+    degrees up to 64 in the comparison; CUDA tensors as the wrapper there
+    checks them)."""
+    _sumcheck_round("mlt_sumcheck_round_scalars_one_thread", state, prev, digest_out, sums, vinv, coeffs, r_out)
+

@@ -219,6 +219,53 @@ def test_round_scalars_with_a_root_and_the_last_element(prefix):
     assert torch.equal(scal, before), "the last-element launch leaves the scalars alone"
 
 
+@pytest.mark.parametrize("fill", [1, 2, 3, 61, 62, 63])
+def test_round_scalars_straddle_a_block_at_every_word_offset(fill):
+    """From a fill that is not a multiple of 4 (a whole block absorbed
+    before): a round with a root (64 bytes: across a block's end from any of
+    these fills), a round without one (32 bytes) and the last element (16
+    bytes: across from 61-63), each against the JAX package's host
+    transcript absorbing the same bytes - what the kernel's word-granular
+    absorb must keep."""
+    rng = np.random.default_rng(700 + fill)
+    prior = rng.bytes(64 + fill)
+    jhost = JTranscript()
+    jhost.absorb(prior)
+    host = Transcript()
+    host.absorb(prior)
+    state = dtr.state_from_host(host)
+    assert int(state[24]) == fill
+    prev = int.from_bytes(rng.bytes(16), "little") % P
+    scal = limbs.pack_ints([prev, 0, 0])
+    coeffs, digest = torch.zeros((2, 4), dtype=torch.int32), torch.zeros(8, dtype=torch.int32)
+    absorbed = 64 + fill
+    for root in (torch.from_numpy(rng.integers(0, 2**32, size=8, dtype=np.uint32).view(np.int32)), None):
+        lanes = _lanes("random", rng)
+        dtr.round_scalars(state, scal, digest, sums=torch.tensor(lanes, dtype=torch.int64), root=root,
+                          coeffs=coeffs)
+        if root is not None:
+            jhost.absorb(digest_to_bytes(root.numpy()))
+        s1, s2 = (ops.limb_sums_to_int(row) for row in lanes)
+        s0 = (prev - s1) % P
+        c2 = (s2 - 2 * s1 + s0) * pow(2, -1, P) % P
+        c1 = (s1 - s0 - c2) % P
+        jhost.absorb(JFp(c1).to_bytes())
+        jhost.absorb(JFp(c2).to_bytes())
+        r = jhost.next_challenge().v
+        absorbed += 32 + (32 if root is not None else 0)
+        assert [int(v) for v in limbs.unpack_ints(coeffs)] == [c1, c2]
+        assert [int(v) for v in limbs.unpack_ints(scal)] == [(s0 + r * (c1 + r * c2)) % P, r,
+                                                             r * pow(2, -1, P) % P]
+        assert digest_to_bytes(digest.numpy()) == jhost.random()
+        assert (int(state[24]), int(state[25])) == (absorbed % 64, absorbed)
+        prev = (s0 + r * (c1 + r * c2)) % P
+    last = limbs.pack_ints([int.from_bytes(rng.bytes(16), "little") % P] * 2)
+    dtr.round_scalars(state, scal, digest, elem=last)
+    jhost.absorb(limbs.unpack_fps(last)[0].to_bytes())
+    assert digest_to_bytes(digest.numpy()) == jhost.random()
+    assert dtr.state_to_host(state).random() == jhost.random()
+
+
 def test_round_scalars_rejects_bad_arguments():
     state, scal = dtr.fresh_state(), limbs.pack_ints([0, 0, 0])
     digest, coeffs = torch.zeros(8, dtype=torch.int32), torch.zeros((2, 4), dtype=torch.int32)
