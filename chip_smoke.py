@@ -365,13 +365,12 @@ def node_ops() -> np.ndarray:
 
 
 def launch_counts() -> dict:
-    return {**cuda_ops.launch_counts(), **sha256_cuda.launch_counts(), **dtr.launch_counts()}
+    """Launches of each hand-written kernel since the last ``reset_counts``."""
+    counts = stats.counts()
+    return {name: counts.get("launch." + name, 0) for name in KERNELS}
 
 
 def reset_counts() -> None:
-    cuda_ops.reset_launch_counts()
-    sha256_cuda.reset_launch_counts()
-    dtr.reset_launch_counts()
     stats.reset()
 
 
@@ -1479,29 +1478,6 @@ def routes_phase(dev, log_n: int = 24, log_b: int = BATCHED_LOG_SIZES[-1]) -> li
     return round_rows
 
 
-def profile_phase(dev, label: str, prove) -> None:
-    """One traced prove: device-busy share and the kernels by device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    prove()  # warm caches and allocator
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        prove()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    ev = [e for e in prof.key_averages() if e.device_time_total > 0 and
-          e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.device_time_total for e in ev) / 1e6
-    top = sorted(ev, key=lambda e: -e.device_time_total)[:14]
-    emit("profile", path=label, traced_prove_s=wall, device_busy_s=busy,
-         device_idle_share=max(0.0, 1 - busy / wall), device_kernels=sum(e.count for e in ev),
-         top=[{"name": e.key[:60], "calls": e.count, "device_ms": e.device_time_total / 1e3}
-              for e in top])
-    clear_caches()
-    torch.cuda.empty_cache()
-
-
 # ---------------------------------------------------------------------------
 # the main paths
 # ---------------------------------------------------------------------------
@@ -1580,7 +1556,7 @@ def rounds_without_sync(session, to_bytes, want_sha256: str) -> dict:
         raise RuntimeError(f"rounds under the sync check: {copies_in_rounds} copies, proof {digest} "
                            f"against {want_sha256}")
     return {"sync_debug_mode": "error", "rounds_launched": launched, "d2h_copies_in_rounds": copies_in_rounds,
-            "round_scalars_launches": dtr.launch_counts()["round_scalars"], "proof_equals_timed_prove": True}
+            "round_scalars_launches": launch_counts()["round_scalars"], "proof_equals_timed_prove": True}
 
 
 def pcs_phase(dev, log_sizes):
@@ -1775,25 +1751,6 @@ def traced_sumcheck_rounds(session):
         wall = time.perf_counter() - t0
     return rounds, wall, [e for e in prof.key_averages() if e.device_time_total > 0 and
                           e.device_type == torch.autograd.DeviceType.CUDA]
-
-
-def profile_snark_rounds(dev, label: str, kind: str, log_n: int) -> None:
-    """One traced run of a SNARK path's sumcheck rounds alone: device
-    kernels per round (every launch, the tensor code's too) and the card's
-    busy share while the host issues them."""
-    config = ProverConfig(device=str(dev))
-    trace = snark_trace(kind, log_n, dev)
-    session = SnarkProverSession(Transcript(), *snark_constraints(kind, trace.width), trace, config=config)
-    rounds, wall, ev = traced_sumcheck_rounds(session)
-    busy = sum(e.device_time_total for e in ev) / 1e6
-    kernels = sum(e.count for e in ev)
-    emit("profile_sumcheck_rounds", path=label, rounds=rounds, traced_rounds_s=wall, device_busy_s=busy,
-         device_idle_share=max(0.0, 1 - busy / wall), device_kernels=kernels, device_kernels_per_round=kernels / rounds,
-         top=[{"name": e.key[:60], "calls": e.count, "device_ms": e.device_time_total / 1e3}
-              for e in sorted(ev, key=lambda e: -e.device_time_total)[:10]])
-    del session, trace
-    clear_caches()
-    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2601,8 +2558,6 @@ def main() -> int:
                     help="comma-separated log2 sizes of the PCS phase (default: %(default)s)")
     ap.add_argument("--batched-log-sizes", default=",".join(map(str, BATCHED_LOG_SIZES)),
                     help="comma-separated log2 sizes of the batched PCS phase (default: %(default)s)")
-    ap.add_argument("--profile", action="store_true",
-                    help="also trace one prove of each main path at its largest size with torch.profiler")
     ap.add_argument("--resume-pcs", metavar="PATH",
                     help="only resume the PCS session saved at PATH, finish it and print its SHA-256 "
                          "(the checkpoint phase runs this in a fresh process)")
@@ -2675,21 +2630,6 @@ def main() -> int:
         api_phase(dev)
         sharded_paths = sharded_phase(dev, log_sizes[-1], batched_sizes[-1], pcs_sha, batched_sha, pcs_peak,
                                       snark_shas, snark_peaks, single_files)
-    if args.profile:
-        config = ProverConfig(device=str(dev))
-        evals, point, output = seeded_claim(log_sizes[-1], 1000 + log_sizes[-1], dev)
-        profile_phase(dev, f"pcs 2^{log_sizes[-1]}",
-                      lambda: PCSProof.prove(point, output, evals, Transcript(), config))
-        del evals
-        polys, claim = seeded_batched_claim(BATCH_POLYS, batched_sizes[-1], 2000 + batched_sizes[-1], dev)
-        profile_phase(dev, f"batched pcs {BATCH_POLYS} x 2^{batched_sizes[-1]}",
-                      lambda: BatchedPCSProof.prove(claim, polys, Transcript(), config))
-        del polys
-        for label, kind, log_n in SNARK_PATHS:
-            trace = snark_trace(kind, log_n, dev)
-            profile_phase(dev, label, lambda: snark_prove(kind, trace, config))
-            del trace
-            profile_snark_rounds(dev, label, kind, log_n)
     pcs_bytes, batched_bytes, snark_bytes = parity_phase(dev)
     reject_phase("pcs", pcs_bytes, lambda b: pcs_proof_from_bytes(b).verify(Transcript()))
     reject_phase("batched_pcs", batched_bytes, lambda b: batched_pcs_proof_from_bytes(b).verify(Transcript()))

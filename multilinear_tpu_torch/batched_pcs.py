@@ -39,7 +39,7 @@ from .mle import eq_scalar
 from .pcs import DeviceRounds, launch_rounds, run_rounds
 from .sumcheck import SumcheckPoly, SumcheckTables
 from .transcript import Transcript
-from .utils import PhaseTimer
+from .utils import span
 
 
 @dataclass
@@ -80,9 +80,10 @@ class BatchedPCSProof:
 
         Reference flow: src/fri/batched_pcs.rs:36-186.
         """
-        session = BatchedPCSProverSession(claim, polys, transcript, config, layout)
-        session.run_rounds()
-        return session.finish()
+        with span("proof"):
+            session = BatchedPCSProverSession(claim, polys, transcript, config, layout)
+            session.run_rounds()
+            return session.finish()
 
     def verify(self, transcript: Transcript) -> None:
         """Reference verify (src/fri/batched_pcs.rs:188-253).  Host-only."""
@@ -181,47 +182,46 @@ class BatchedPCSProverSession:
         if debug and not ops.is_canonical(polys):
             raise ValueError("non-canonical field element in polys")
 
-        pt = PhaseTimer(self.config.device)
         # RS-encode every polynomial in one batched pass (coeffs
         # bit-reversed, Q8)
-        if by_rows:
-            if not cyclic:
-                polys = sharded.to_cyclic(polys, layout)
-            codes = sharded.encode_cyclic(polys, layout)
-        else:
-            codes = encode_mle_for_fri(polys)
-        pt.mark("encode")
-        self.claim.absorb_into(transcript)
-        if layout is None:
-            self.bfri = BatchedFriProverData.init(codes, transcript, debug_checks=debug)
-        else:
-            rows = codes if by_rows else sharded.batch_to_rows(codes, layout)
-            self.bfri = sharded.ShardedBatchedFriProverData.init(rows, transcript, layout, debug)
-            del rows
-        del codes
-        pt.mark("commit_batch")
+        with span("encode"):
+            if by_rows:
+                if not cyclic:
+                    polys = sharded.to_cyclic(polys, layout)
+                codes = sharded.encode_cyclic(polys, layout)
+            else:
+                codes = encode_mle_for_fri(polys)
+        with span("commit_batch"):
+            self.claim.absorb_into(transcript)
+            if layout is None:
+                self.bfri = BatchedFriProverData.init(codes, transcript, debug_checks=debug)
+            else:
+                rows = codes if by_rows else sharded.batch_to_rows(codes, layout)
+                self.bfri = sharded.ShardedBatchedFriProverData.init(rows, transcript, layout, debug)
+                del rows
+            del codes
         # eval-wise Horner RLC of the B MLEs into one sumcheck polynomial
-        if layout is None:
-            rlc_evals = _fingerprint_codes(polys, self.bfri.fingerprint_limbs)
-            self.tables = SumcheckTables.for_pcs(self.claim.inputs, rlc_evals, debug_checks=debug)
-        else:
-            rows = polys if by_rows else sharded.batch_to_rows(polys, layout)
-            rlc_evals = _fingerprint_codes(rows, self.bfri.fingerprint_limbs)
-            self.tables = sharded.ShardedTables.for_pcs(self.claim.inputs, rlc_evals, layout, debug)
-            self.bfri.fri_data.mark_bytes()
-        self.rounds = DeviceRounds(transcript, self.n_vars,
-                                   fingerprint(self.bfri.fingerprint_r, self.claim.outputs), polys.device)
-        pt.mark("tables")
+        with span("tables"):
+            if layout is None:
+                rlc_evals = _fingerprint_codes(polys, self.bfri.fingerprint_limbs)
+                self.tables = SumcheckTables.for_pcs(self.claim.inputs, rlc_evals, debug_checks=debug)
+            else:
+                rows = polys if by_rows else sharded.batch_to_rows(polys, layout)
+                rlc_evals = _fingerprint_codes(rows, self.bfri.fingerprint_limbs)
+                self.tables = sharded.ShardedTables.for_pcs(self.claim.inputs, rlc_evals, layout, debug)
+                self.bfri.fri_data.mark_bytes()
+            self.rounds = DeviceRounds(transcript, self.n_vars,
+                                       fingerprint(self.bfri.fingerprint_r, self.claim.outputs), polys.device)
         self.pols: List[SumcheckPoly] = []
 
         # round 0 on the device: the batched fold, which draws on the batch
         # layer exactly once.  No fold tree exists yet, so it absorbs no root;
         # the host replays it with the rounds of the first run_rounds.
         self.k = 0
-        self.rounds.round(self.tables, self.bfri.fri_data, lambda k, rh: self.bfri.batched_fold_step(rh), 0,
-                          self.n_vars == 1)
-        self.k = 1
-        pt.mark("rounds")
+        with span("rounds"):
+            self.rounds.round(self.tables, self.bfri.fri_data, lambda k, rh: self.bfri.batched_fold_step(rh), 0,
+                              self.n_vars == 1)
+            self.k = 1
 
     def launch_rounds(self, max_rounds: Optional[int] = None) -> int:
         """Launch up to ``max_rounds`` of rounds 1.. on the device and copy
@@ -237,11 +237,11 @@ class BatchedPCSProverSession:
         self.pols += self.rounds.replay(self.bfri.fri_data)
         if self.k != self.n_vars or self.bfri.fri_data.last_element is None:
             raise RuntimeError("finish() before all rounds ran")
-        pt = PhaseTimer(self.config.device)
-        domain_size = 1 << (self.n_vars + LOG_BLOWUP)
-        indices = draw_query_indices(self.transcript, domain_size // 2, NUM_QUERIES)
-        queries = self.bfri.open_queries(indices)
-        pt.mark("queries")
+        with span("queries"):
+            domain_size = 1 << (self.n_vars + LOG_BLOWUP)
+            indices = draw_query_indices(self.transcript, domain_size // 2, NUM_QUERIES)
+            with span("open"):
+                queries = self.bfri.open_queries(indices)
         fri_proof = BatchedFriProof(
             batch_commitment=self.bfri.batch_tree.root_bytes(),
             commitments=self.bfri.fri_data.fold_roots(),

@@ -26,7 +26,8 @@ memory (:func:`sumcheck_degree_limit`, in the thousands on an H100).
 The functions here are plain Python over that tensor - what the CPU runs,
 and what the kernels are held against.  ``round_scalars`` and
 ``sumcheck_round_scalars`` are the kernels' wrappers: a CUDA tensor launches
-the kernel (or raises), a CPU tensor runs the ``*_plain`` version.
+the kernel (or raises; each launch is counted in ``stats`` under
+``launch.`` and the kernel's name), a CPU tensor runs the ``*_plain`` version.
 """
 
 from __future__ import annotations
@@ -37,24 +38,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import stats
 from .field import limbs, ops
 from .field.scalar import P, TWO_INV
 from .transcript import Sha256Midstate, Transcript
 
 STATE_WORDS = 26
 _FILL, _TOTAL = 24, 25
-
-_LAUNCHES = {"round_scalars": 0, "sumcheck_round_scalars": 0}
-
-
-def launch_counts() -> dict:
-    return dict(_LAUNCHES)
-
-
-def reset_launch_counts() -> None:
-    for k in _LAUNCHES:
-        _LAUNCHES[k] = 0
-
 
 class TranscriptMismatch(RuntimeError):
     """The host's replay of the device's absorbs does not reach the digest
@@ -209,7 +199,7 @@ def round_scalars(state: torch.Tensor, scal: torch.Tensor, digest_out: torch.Ten
     )
     if rc != 0:
         raise RuntimeError(f"CUDA kernel round_scalars failed to launch (cudaError {rc})")
-    _LAUNCHES["round_scalars"] += 1
+    stats.bump("launch.round_scalars")
 
 
 # ---------------------------------------------------------------------------
@@ -307,4 +297,4 @@ def sumcheck_round_scalars(state: torch.Tensor, prev: torch.Tensor, digest_out: 
     )
     if rc != 0:
         raise RuntimeError(f"CUDA kernel sumcheck_round_scalars failed to launch (cudaError {rc})")
-    _LAUNCHES["sumcheck_round_scalars"] += 1
+    stats.bump("launch.sumcheck_round_scalars")

@@ -1,11 +1,11 @@
 """Hand-written CUDA kernels for the field hot paths, with their wrappers,
-plain PyTorch versions and launch counters.
+plain PyTorch versions.
 
 Counterpart of the JAX package's ``field/pallas_ops.py``.  Each wrapper
 validates its inputs and then lets the DEVICE OF THE TENSOR decide: a CUDA
 tensor launches the kernel (or raises - there is no fallback), a CPU tensor
 runs the plain version, which repeats the same arithmetic in tensor code.
-``launch_counts()`` says how many times each kernel was enqueued.
+Each launch is counted in ``stats`` as ``launch.<kernel>``.
 
 Kernels (sources under ``csrc/``):
 
@@ -35,22 +35,8 @@ from typing import Optional
 
 import torch
 
+from .. import stats
 from . import ops
-
-_LAUNCHES = {
-    "mul": 0, "add": 0, "sub": 0, "butterfly": 0, "butterfly_notw": 0, "butterfly2": 0,
-    "twiddle_mul3": 0, "kron_mul": 0, "zm_butterfly": 0, "fold_codeword": 0,
-    "fold_commit_leaves": 0,
-}
-
-
-def launch_counts() -> dict:
-    return dict(_LAUNCHES)
-
-
-def reset_launch_counts() -> None:
-    for k in _LAUNCHES:
-        _LAUNCHES[k] = 0
 
 
 def _check_field(name: str, t: torch.Tensor, device=None, contiguous=True) -> None:
@@ -78,7 +64,7 @@ def _launch(kernel: str, symbol: str, device: torch.device, *args) -> None:
     rc = fn(*args, device.index if device.index is not None else torch.cuda.current_device(), stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {kernel} failed to launch (cudaError {rc})")
-    _LAUNCHES[kernel] += 1
+    stats.bump("launch." + kernel)
 
 
 # ---------------------------------------------------------------------------

@@ -47,7 +47,7 @@ from .mle import eq_scalar
 from .sha256 import digest_to_bytes
 from .sumcheck import SumcheckPoly, SumcheckTables
 from .transcript import Transcript
-from .utils import PhaseTimer
+from .utils import span
 
 
 @dataclass
@@ -76,9 +76,10 @@ class PCSProof:
 
         Reference flow: src/fri/multilinear_pcs.rs:89-136.
         """
-        session = PCSProverSession(inputs, output, evals, transcript, config, layout)
-        session.run_rounds()
-        return session.finish()
+        with span("proof"):
+            session = PCSProverSession(inputs, output, evals, transcript, config, layout)
+            session.run_rounds()
+            return session.finish()
 
     def verify(self, transcript: Transcript) -> None:
         """Replay the interleaved transcript, telescope the sumcheck, check
@@ -153,17 +154,18 @@ class DeviceRounds:
         Fiat-Shamir (absorbing the newest tree's root first if the state has
         not had it), the table fold, the codeword fold ``fold_step(k, rh)``;
         after the last fold the last element's absorb."""
-        trees = fri_data.trees
-        tree = trees[self.roots_absorbed] if len(trees) > self.roots_absorbed else None
-        dtr.round_scalars(self.state, self.scal, self.digest, sums=tables.partial_sums(),
-                          root=tree.root_words if tree is not None else None, coeffs=self.coeffs[k])
-        self.roots_absorbed += tree is not None
-        self._rounds.append((k, tree))
-        tables.fold(self.r)
-        fold_step(k, self.rh)
-        if last:
-            dtr.round_scalars(self.state, self.scal, self.digest, elem=fri_data.final)
-            self._last = True
+        with span("round"):
+            trees = fri_data.trees
+            tree = trees[self.roots_absorbed] if len(trees) > self.roots_absorbed else None
+            dtr.round_scalars(self.state, self.scal, self.digest, sums=tables.partial_sums(),
+                              root=tree.root_words if tree is not None else None, coeffs=self.coeffs[k])
+            self.roots_absorbed += tree is not None
+            self._rounds.append((k, tree))
+            tables.fold(self.r)
+            fold_step(k, self.rh)
+            if last:
+                dtr.round_scalars(self.state, self.scal, self.digest, elem=fri_data.final)
+                self._last = True
 
     def replay(self, fri_data: FriProverData) -> List[SumcheckPoly]:
         """ONE device->host copy: the round polynomials of the rounds not
@@ -173,33 +175,34 @@ class DeviceRounds:
         the same digest.  Returns the round polynomials."""
         if not self._rounds:
             return []
-        fresh = [t for t in fri_data.trees if not t.has_root_bytes]
-        k0, n = self._rounds[0][0], len(self._rounds)
-        parts = [self.coeffs[k0 : k0 + n].reshape(-1)] + [t.root_words for t in fresh]
-        if self._last:
-            parts.append(fri_data.final.reshape(-1))
-        parts.append(self.digest)
-        host = stats.fetch(torch.cat(parts)).view(np.uint32)
-        coeffs = limbs.unpack_ints(host[: 8 * n].reshape(-1, 2, 4))
-        off = 8 * n
-        for t in fresh:
-            t.set_root_words(host[off : off + 8])
-            off += 8
-        pols = []
-        for (k, tree), (c1, c2) in zip(self._rounds, coeffs):
-            if tree is not None:
-                self.transcript.absorb(tree.root_bytes())
-            pol = SumcheckPoly([Fp(int(c1)), Fp(int(c2))])
-            pol.absorb_into(self.transcript)
-            pols.append(pol)
-        if self._last:
-            fri_data.set_last_element(limbs.unpack_ints(host[off:-8].reshape(-1, 4)))
-            self.transcript.absorb(fri_data.last_element.to_bytes())
-        if self.transcript.random() != digest_to_bytes(host[-8:]):
-            raise dtr.TranscriptMismatch("the host transcript's replay of the rounds does not reach "
-                                         "the digest the device computed")
-        self._rounds, self._last = [], False
-        return pols
+        with span("replay"):
+            fresh = [t for t in fri_data.trees if not t.has_root_bytes]
+            k0, n = self._rounds[0][0], len(self._rounds)
+            parts = [self.coeffs[k0 : k0 + n].reshape(-1)] + [t.root_words for t in fresh]
+            if self._last:
+                parts.append(fri_data.final.reshape(-1))
+            parts.append(self.digest)
+            host = stats.fetch(torch.cat(parts)).view(np.uint32)
+            coeffs = limbs.unpack_ints(host[: 8 * n].reshape(-1, 2, 4))
+            off = 8 * n
+            for t in fresh:
+                t.set_root_words(host[off : off + 8])
+                off += 8
+            pols = []
+            for (k, tree), (c1, c2) in zip(self._rounds, coeffs):
+                if tree is not None:
+                    self.transcript.absorb(tree.root_bytes())
+                pol = SumcheckPoly([Fp(int(c1)), Fp(int(c2))])
+                pol.absorb_into(self.transcript)
+                pols.append(pol)
+            if self._last:
+                fri_data.set_last_element(limbs.unpack_ints(host[off:-8].reshape(-1, 4)))
+                self.transcript.absorb(fri_data.last_element.to_bytes())
+            if self.transcript.random() != digest_to_bytes(host[-8:]):
+                raise dtr.TranscriptMismatch("the host transcript's replay of the rounds does not reach "
+                                             "the digest the device computed")
+            self._rounds, self._last = [], False
+            return pols
 
 
 def launch_rounds(session, fri_data: FriProverData, max_rounds: Optional[int]) -> int:
@@ -220,10 +223,9 @@ def launch_rounds(session, fri_data: FriProverData, max_rounds: Optional[int]) -
 def run_rounds(session, fri_data: FriProverData, max_rounds: Optional[int]) -> int:
     """``launch_rounds``, then the one copy that brings the host transcript
     and ``session.pols`` up to date; returns the number of rounds done."""
-    pt = PhaseTimer(session.config.device)
-    done = launch_rounds(session, fri_data, max_rounds)
-    session.pols += session.rounds.replay(fri_data)
-    pt.mark("rounds")
+    with span("rounds"):
+        done = launch_rounds(session, fri_data, max_rounds)
+        session.pols += session.rounds.replay(fri_data)
     return done
 
 
@@ -267,32 +269,31 @@ class PCSProverSession:
         if debug and not ops.is_canonical(evals):
             raise ValueError("non-canonical field element in evals")
 
-        pt = PhaseTimer(str(evals.device))
-        if layout is None:
-            code = encode_mle_for_fri(evals)
-        else:
-            from .parallel import rounds as sharded
-
-            sharded.check_rows(self.n_vars, layout)
-            if cyclic:
-                code = sharded.encode_cyclic(evals, layout)
+        with span("encode"):
+            if layout is None:
+                code = encode_mle_for_fri(evals)
             else:
-                evals, code = sharded.encode_rows(evals, layout)
-        pt.mark("encode")
+                from .parallel import rounds as sharded
+
+                sharded.check_rows(self.n_vars, layout)
+                if cyclic:
+                    code = sharded.encode_cyclic(evals, layout)
+                else:
+                    evals, code = sharded.encode_rows(evals, layout)
         # the root is absorbed on the device by the first round
-        if layout is None:
-            self.fri_data = FriProverData.init(code, None, debug_checks=debug)
-        else:
-            self.fri_data = sharded.ShardedFriProverData.init(code, layout, None, debug)
-        del code
-        pt.mark("commit_l0")
-        if layout is None:
-            self.tables = SumcheckTables.for_pcs(self.inputs, evals, debug_checks=debug)
-        else:
-            self.tables = sharded.ShardedTables.for_pcs(self.inputs, evals, layout, debug)
-            self.fri_data.mark_bytes()
-        self.rounds = DeviceRounds(transcript, self.n_vars, self.output, evals.device)
-        pt.mark("tables")
+        with span("commit_l0"):
+            if layout is None:
+                self.fri_data = FriProverData.init(code, None, debug_checks=debug)
+            else:
+                self.fri_data = sharded.ShardedFriProverData.init(code, layout, None, debug)
+            del code
+        with span("tables"):
+            if layout is None:
+                self.tables = SumcheckTables.for_pcs(self.inputs, evals, debug_checks=debug)
+            else:
+                self.tables = sharded.ShardedTables.for_pcs(self.inputs, evals, layout, debug)
+                self.fri_data.mark_bytes()
+            self.rounds = DeviceRounds(transcript, self.n_vars, self.output, evals.device)
         self.k = 0
         self.pols: List[SumcheckPoly] = []
 
@@ -310,11 +311,11 @@ class PCSProverSession:
         self.pols += self.rounds.replay(self.fri_data)
         if self.k != self.n_vars or self.fri_data.last_element is None:
             raise RuntimeError("finish() before all rounds ran")
-        pt = PhaseTimer(self.config.device)
-        domain_size = 1 << (self.n_vars + LOG_BLOWUP)
-        indices = draw_query_indices(self.transcript, domain_size // 2, NUM_QUERIES)
-        queries = self.fri_data.open_queries(indices)
-        pt.mark("queries")
+        with span("queries"):
+            domain_size = 1 << (self.n_vars + LOG_BLOWUP)
+            indices = draw_query_indices(self.transcript, domain_size // 2, NUM_QUERIES)
+            with span("open"):
+                queries = self.fri_data.open_queries(indices)
         fri_proof = FriProof(
             commitments=self.fri_data.fold_roots(),
             queries=queries,

@@ -26,6 +26,7 @@ from .merkle import MerklePath
 from .pcs import PCSProof
 from .sumcheck import SumcheckPoly
 from .system import SnarkProof
+from .utils import span
 
 
 class _Writer:
@@ -171,13 +172,18 @@ def _read_pols(r: _Reader) -> List[SumcheckPoly]:
 # -- PCS ------------------------------------------------------------------------
 
 
-def pcs_proof_to_bytes(proof: PCSProof) -> bytes:
-    w = _Writer()
+def _write_pcs(w: _Writer, proof: PCSProof):
     _write_fri(w, proof.fri_proof)
     _write_pols(w, proof.sumcheck_polynomials)
     w.felts(proof.inputs)
     w.felt(proof.output)
-    return w.done()
+
+
+def pcs_proof_to_bytes(proof: PCSProof) -> bytes:
+    with span("serialize"):
+        w = _Writer()
+        _write_pcs(w, proof)
+        return w.done()
 
 
 def pcs_proof_from_bytes(buf: bytes) -> PCSProof:
@@ -232,13 +238,18 @@ def batched_fri_proof_from_bytes(buf: bytes) -> BatchedFriProof:
     return proof
 
 
-def batched_pcs_proof_to_bytes(proof: BatchedPCSProof) -> bytes:
-    w = _Writer()
+def _write_batched_pcs(w: _Writer, proof: BatchedPCSProof):
     _write_batched_fri(w, proof.fri_proof)
     _write_pols(w, proof.sumcheck_polynomials)
     w.felts(proof.claim.inputs)
     w.felts(proof.claim.outputs)
-    return w.done()
+
+
+def batched_pcs_proof_to_bytes(proof: BatchedPCSProof) -> bytes:
+    with span("serialize"):
+        w = _Writer()
+        _write_batched_pcs(w, proof)
+        return w.done()
 
 
 def batched_pcs_proof_from_bytes(buf: bytes) -> BatchedPCSProof:
@@ -260,21 +271,23 @@ def batched_pcs_proof_from_bytes(buf: bytes) -> BatchedPCSProof:
 
 
 def snark_proof_to_bytes(proof: SnarkProof) -> bytes:
-    w = _Writer()
-    _write_pols(w, proof.sumcheck_polynomials)
-    w.felts(proof.outputs)
-    w.felt(proof.sum_value)
-    if isinstance(proof.pcs, PCSProof):
-        w.u8(0)
-        inner = pcs_proof_to_bytes(proof.pcs)
-    elif isinstance(proof.pcs, BatchedPCSProof):
-        w.u8(1)
-        inner = batched_pcs_proof_to_bytes(proof.pcs)
-    else:
-        raise TypeError(f"unknown PCS proof type {type(proof.pcs)!r}")
-    w.u64(len(inner))
-    w.raw(inner)
-    return w.done()
+    with span("serialize"):
+        w, inner = _Writer(), _Writer()
+        _write_pols(w, proof.sumcheck_polynomials)
+        w.felts(proof.outputs)
+        w.felt(proof.sum_value)
+        if isinstance(proof.pcs, PCSProof):
+            w.u8(0)
+            _write_pcs(inner, proof.pcs)
+        elif isinstance(proof.pcs, BatchedPCSProof):
+            w.u8(1)
+            _write_batched_pcs(inner, proof.pcs)
+        else:
+            raise TypeError(f"unknown PCS proof type {type(proof.pcs)!r}")
+        inner = inner.done()
+        w.u64(len(inner))
+        w.raw(inner)
+        return w.done()
 
 
 def snark_proof_from_bytes(buf: bytes) -> SnarkProof:

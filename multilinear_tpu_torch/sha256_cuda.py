@@ -1,4 +1,4 @@
-"""The SHA-256 CUDA kernels' wrappers, plain versions and launch counters.
+"""The SHA-256 CUDA kernels' wrappers and plain versions.
 
 Counterpart of the JAX package's ``sha256_pallas.py``.  Three kernels share
 one compression (``csrc/sha256.cuh``):
@@ -12,12 +12,15 @@ one compression (``csrc/sha256.cuh``):
   levels a launch (``csrc/merkle_levels.cu``, counted as ``merkle_levels``).
 
 A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
-tensor-code version beside each wrapper.
+tensor-code version beside each wrapper.  Each launch is counted in
+``stats`` as ``launch.<kernel>``.
 """
 
 from __future__ import annotations
 
 import torch
+
+from . import stats
 
 _K = [
     0x428a2f98, 0x71374491, 0xb5c0fbcf, 0xe9b5dba5, 0x3956c25b, 0x59f111f1,
@@ -38,18 +41,6 @@ _H0 = [
 ]
 _M32 = 0xFFFFFFFF
 
-_LAUNCHES = {"sha256_words": 0, "sha256_leaves": 0, "merkle_levels": 0}
-
-
-def launch_counts() -> dict:
-    return dict(_LAUNCHES)
-
-
-def reset_launch_counts() -> None:
-    for k in _LAUNCHES:
-        _LAUNCHES[k] = 0
-
-
 def _launch(kernel: str, symbol: str, device: torch.device, *args) -> None:
     """Enqueue one kernel on PyTorch's current stream of ``device``."""
     from . import _build
@@ -61,7 +52,7 @@ def _launch(kernel: str, symbol: str, device: torch.device, *args) -> None:
     )
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {kernel} failed to launch (cudaError {rc})")
-    _LAUNCHES[kernel] += 1
+    stats.bump("launch." + kernel)
 
 
 def n_blocks(n_words: int) -> int:

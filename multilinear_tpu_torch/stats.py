@@ -1,10 +1,16 @@
-"""Counters a run can read back: device->host copies and routing events.
+"""The port's one counter registry: device->host copies, kernel launches
+and routing events.  ``counts()`` reads them, ``reset()`` sets them to 0.
+(Time is the other tracing mechanism: ``utils.span``.)
 
 ``fetch`` is the ONE place the prover copies a device tensor to the host,
 so ``counts()["d2h_copies"]`` is the number of host synchronizations a
 prove paid.  The rounds draw their challenges on the device and copy
 nothing; a PCS prove copies twice (the end of the rounds, the query
 openings), a batched prove three times (the batch root first).
+
+``launch.<kernel>``: each launch of one of the port's hand-written kernels
+(``field.cuda_ops``, ``sha256_cuda``, ``device_transcript``), bumped where
+the wrapper enqueues it; PyTorch's own kernels are not counted here.
 
 Routing events, bumped where a module picks a kernel, so that a test can
 assert which one ran:

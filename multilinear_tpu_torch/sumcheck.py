@@ -44,6 +44,7 @@ from .mle import combine_subtables, delta_subtables
 from .poly import Polynomial
 from .sha256 import digest_to_bytes
 from .transcript import Transcript
+from .utils import span
 
 PCS_DEGREE = 2  # identity composition times the delta weights
 
@@ -291,10 +292,11 @@ class DeviceSumcheckRounds:
         end = self.n_rounds if max_rounds is None else min(self.n_rounds, self.k + max_rounds)
         done = 0
         while self.k < end:
-            sums = self.tables.partial_sums(self.composition, self.total_degree, self.aux)
-            dtr.sumcheck_round_scalars(self.state, self.prev, self.digest, sums, self.vinv, self.coeffs[self.k],
-                                       self.randoms[self.k])
-            self.tables.fold(self.randoms[self.k])
+            with span("sumcheck_round"):
+                sums = self.tables.partial_sums(self.composition, self.total_degree, self.aux)
+                dtr.sumcheck_round_scalars(self.state, self.prev, self.digest, sums, self.vinv,
+                                           self.coeffs[self.k], self.randoms[self.k])
+                self.tables.fold(self.randoms[self.k])
             self.k += 1
             done += 1
         return done
@@ -313,30 +315,31 @@ class DeviceSumcheckRounds:
         rounds."""
         if self.replayed == self.k:
             return [], []
-        k0, n, d = self.replayed, self.k - self.replayed, self.total_degree
-        last = self.k == self.n_rounds
-        w = self.tables.data.shape[0] - 1
-        parts = [self.coeffs[k0 : self.k].reshape(-1), self.randoms[k0 : self.k].reshape(-1)]
-        if last:
-            parts.append(self.tables.data[:w, 0].reshape(-1))
-        host = stats.fetch(torch.cat(parts + [self.digest])).view(np.uint32)
-        coeffs = limbs.unpack_ints(host[: 4 * d * n].reshape(n, d, 4))
-        device_rs = limbs.unpack_ints(host[4 * d * n : 4 * (d + 1) * n].reshape(n, 4))
-        pols, randoms = [], []
-        for row in coeffs:
-            pol = SumcheckPoly([Fp(int(c)) for c in row])
-            pol.absorb_into(self.transcript)
-            pols.append(pol)
-            randoms.append(self.transcript.next_challenge())
-        if [r.v for r in randoms] != [int(r) for r in device_rs] or \
-                self.transcript.random() != digest_to_bytes(host[-8:]):
-            raise dtr.TranscriptMismatch("the host transcript's replay of the sumcheck rounds does not reach "
-                                         "the randoms and the digest the device computed")
-        if last:
-            end = 4 * (d + 1) * n
-            self.outputs = [Fp(int(v)) for v in limbs.unpack_ints(host[end : end + 4 * w].reshape(w, 4))]
-        self.replayed = self.k
-        return pols, randoms
+        with span("replay"):
+            k0, n, d = self.replayed, self.k - self.replayed, self.total_degree
+            last = self.k == self.n_rounds
+            w = self.tables.data.shape[0] - 1
+            parts = [self.coeffs[k0 : self.k].reshape(-1), self.randoms[k0 : self.k].reshape(-1)]
+            if last:
+                parts.append(self.tables.data[:w, 0].reshape(-1))
+            host = stats.fetch(torch.cat(parts + [self.digest])).view(np.uint32)
+            coeffs = limbs.unpack_ints(host[: 4 * d * n].reshape(n, d, 4))
+            device_rs = limbs.unpack_ints(host[4 * d * n : 4 * (d + 1) * n].reshape(n, 4))
+            pols, randoms = [], []
+            for row in coeffs:
+                pol = SumcheckPoly([Fp(int(c)) for c in row])
+                pol.absorb_into(self.transcript)
+                pols.append(pol)
+                randoms.append(self.transcript.next_challenge())
+            if [r.v for r in randoms] != [int(r) for r in device_rs] or \
+                    self.transcript.random() != digest_to_bytes(host[-8:]):
+                raise dtr.TranscriptMismatch("the host transcript's replay of the sumcheck rounds does not reach "
+                                             "the randoms and the digest the device computed")
+            if last:
+                end = 4 * (d + 1) * n
+                self.outputs = [Fp(int(v)) for v in limbs.unpack_ints(host[end : end + 4 * w].reshape(w, 4))]
+            self.replayed = self.k
+            return pols, randoms
 
 
 def replay_sumcheck(transcript: Transcript, pols: Sequence[SumcheckPoly], sum_value: Fp, degree: int = None):

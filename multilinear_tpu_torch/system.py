@@ -48,7 +48,7 @@ from .mle import eq_scalar, evaluate_evals, mask_scalar
 from .pcs import PCSProof, PCSProverSession
 from .sumcheck import DeviceSumcheckRounds, SumcheckPoly, SumcheckTables, replay_sumcheck
 from .transcript import Transcript
-from .utils import PhaseTimer
+from .utils import span
 
 # An Expr takes (values, randoms) and returns a value; polymorphic over
 # ops.FA tensors and host Fp scalars.
@@ -339,10 +339,11 @@ class System:
         """Sumcheck over the composed constraints, then a PCS opening of the
         trace columns at the sumcheck point: ``PCSProof`` for width 1,
         ``BatchedPCSProof`` for more columns."""
-        session = SnarkProverSession(transcript, self.constraints, self.layout, self.trace, sum_value,
-                                     self.config, system=self)
-        session.run_sumcheck_rounds()
-        return session.finish()
+        with span("proof"):
+            session = SnarkProverSession(transcript, self.constraints, self.layout, self.trace, sum_value,
+                                         self.config, system=self)
+            session.run_sumcheck_rounds()
+            return session.finish()
 
     def verify_snark(self, transcript: Transcript, proof: "SnarkProof") -> None:
         """Verify a :class:`SnarkProof`: the sumcheck replay against the
@@ -379,7 +380,7 @@ class SnarkProverSession:
     writes the session to disk in either phase and ``resume`` continues it
     (``checkpoint``).
 
-    Phases (``utils.PhaseTimer``): ``snark_tables``, ``sumcheck_rounds``,
+    Phases (``utils.span``): ``snark_tables``, ``sumcheck_rounds``,
     then the PCS session's own (encode, commit_l0 or commit_batch, tables,
     rounds, queries).  The outputs - each column's MLE at the sumcheck point -
     are what the last round's fold leaves in the tables; they come to the host
@@ -401,12 +402,11 @@ class SnarkProverSession:
         self.transcript = transcript
         self.trace = self.system.trace
         self.sum_value = Fp(0) if sum_value is None else Fp(sum_value)
-        pt = PhaseTimer(self.config.device)
-        self.tables = self.system.build_tables()
-        comp = self.system.constraints.composition_fn()
-        self.rounds = DeviceSumcheckRounds(transcript, self.tables, comp, self.system.constraints.degree + 1,
-                                           self.sum_value, self.system.aux)
-        pt.mark("snark_tables")
+        with span("snark_tables"):
+            self.tables = self.system.build_tables()
+            comp = self.system.constraints.composition_fn()
+            self.rounds = DeviceSumcheckRounds(transcript, self.tables, comp, self.system.constraints.degree + 1,
+                                               self.sum_value, self.system.aux)
         self.n_rounds = self.rounds.n_rounds
         self.pols: List[SumcheckPoly] = []
         self.randoms: List[Fp] = []
@@ -422,10 +422,9 @@ class SnarkProverSession:
     def run_sumcheck_rounds(self, max_rounds: Optional[int] = None) -> int:
         """Run up to ``max_rounds`` trace-sumcheck rounds and bring the host
         transcript up to date (one copy); returns rounds done."""
-        pt = PhaseTimer(self.config.device)
-        done = self.rounds.launch(max_rounds)
-        self._replay()
-        pt.mark("sumcheck_rounds")
+        with span("sumcheck_rounds"):
+            done = self.rounds.launch(max_rounds)
+            self._replay()
         return done
 
     def _replay(self) -> None:

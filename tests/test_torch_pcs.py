@@ -197,18 +197,19 @@ def test_phase_split_marks_each_phase_once():
 
     jl, point = _case(3, 10)
     marks = []
-    real_mark = utils.PhaseTimer.mark
+    real_exit = utils.span.__exit__
 
-    def spy(self, name):
-        marks.append(name)
-        real_mark(self, name)
+    def spy(self, *exc):
+        if self.name in utils.PHASES:
+            marks.append(self.name)
+        real_exit(self, *exc)
 
-    utils.PhaseTimer.mark = spy
+    utils.span.__exit__ = spy
     try:
         with utils.collect_phases() as phases:
             _port_prove(jl, point)
     finally:
-        utils.PhaseTimer.mark = real_mark
+        utils.span.__exit__ = real_exit
     assert marks == ["encode", "commit_l0", "tables", "rounds", "queries"]
     assert sorted(phases) == sorted(marks) and all(v >= 0 for v in phases.values())
     with utils.collect_phases() as again:
