@@ -58,7 +58,7 @@ import torch
 from multilinear_tpu_torch import _build, fri, merkle, mle, ntt, previous_routes, sha256, sha256_cuda, stats
 from multilinear_tpu_torch import device_transcript as dtr
 from multilinear_tpu_torch.batched_pcs import BatchedPCSClaim, BatchedPCSProof, BatchedPCSProverSession
-from multilinear_tpu_torch.config import ProverConfig
+from multilinear_tpu_torch.config import NUM_QUERIES, ProverConfig
 from multilinear_tpu_torch.field import cuda_ops, limbs, ops
 from multilinear_tpu_torch.field.scalar import Fp, P, pow2_generator
 from multilinear_tpu_torch.fri import FriError
@@ -209,6 +209,13 @@ KERNELS = {
     "sumcheck_round_scalars": {
         "source": "multilinear_tpu_torch/csrc/round_scalars.cu",
         "replaces": "multilinear_tpu/sumcheck.py:352",
+    },
+    # the query openings of every tree of a proof: XLA indexing in the JAX
+    # package (`_gather_openings_multi`), not a TPU kernel; one launch here
+    # where eager PyTorch took three a Merkle level
+    "open_gather": {
+        "source": "multilinear_tpu_torch/csrc/open_gather.cu",
+        "replaces": "multilinear_tpu/merkle.py:230",
     },
 }
 
@@ -1130,6 +1137,43 @@ def kernels_phase(dev) -> dict:
             shapes=[[m, 4], list(tw.shape)], timed=timed)
     del code, tw
 
+    # open_gather: the 128 query openings of the 2^24 prove's 24 pair trees
+    # (2^24 down to 2 leaves) and of the 4 x 2^22 SNARK's batch tree (B = 8,
+    # 2^22 leaves) and its 21 pair trees, against the plain version's
+    # per-tree gathers.  Timed alone, its table already on the card, as a
+    # replayed CUDA graph (`kernel_ms`); `wrapper_ms` adds the host's table
+    # and its copy, as a prove calls it.  Bound: the openings written and
+    # the units they are read from (16-byte payloads, 32-byte siblings) at
+    # the card's memory rate - a launch's latency is far above it.
+    for label, batch, log_pair, n_pair in (("main 2^24 PCS: 24 pair trees", [], 24, 24),
+                                           ("4 x 2^22 batched: a batch tree of B=8, 21 pair trees", [(8, 22)], 21, 21)):
+        trees = []
+        for b, log_leaves in batch + [(2, log_pair - k) for k in range(n_pair)]:
+            cols = random_field(rng, (b, 1 << log_leaves), dev)
+            leaf = merkle.leaf_hashes(cols)
+            trees.append((cols, [leaf] + merkle.tree_levels(leaf)[:-1]))
+        idx = rng.integers(0, trees[0][0].shape[1], NUM_QUERIES)
+        row = check_kernel("open_gather", label, lambda: sha256_cuda.open_gather(trees, idx),
+                           lambda: sha256_cuda.open_gather_plain(trees, idx), 0, 0,
+                           [[len(trees), "trees"], [sum(len(lv) for _, lv in trees), "levels"], [NUM_QUERIES, "queries"]],
+                           False)
+        table, n_segments, n_words = sha256_cuda.open_gather_table(trees, idx)
+        on_card, out = torch.from_numpy(table).to(dev), torch.empty(n_words, dtype=torch.int32, device=dev)
+        b_ms, b_by = bound(2 * 4 * n_words + table.nbytes, alu_ops(0))
+        row.update(kernel_ms=graph_ms(lambda: sha256_cuda._launch("open_gather", "mlt_open_gather", dev,
+                                                                  on_card.data_ptr(), len(idx), n_segments,
+                                                                  out.data_ptr())),
+                   wrapper_ms=time_ms(lambda: sha256_cuda.open_gather(trees, idx), 5),
+                   plain_ms=time_ms(lambda: sha256_cuda.open_gather_plain(trees, idx), 1),
+                   bound_ms=b_ms, bound_by=b_by, output_bytes=4 * n_words, segments=n_segments)
+        row["bound_share"] = b_ms / row["kernel_ms"]
+        print(json.dumps(row), file=sys.stderr, flush=True)
+        rows.append(row)
+        main.setdefault("open_gather", row)
+        main[f"open_gather/{label}"] = row
+        del trees, cols, leaf, on_card, out
+    torch.cuda.empty_cache()
+
     # round_scalars: seeded transcript states at every fill of a block
     # (0-63 bytes, so the root and the round polynomial land at every
     # offset and the digest takes one or two blocks), lane sums up to 2^55
@@ -1504,7 +1548,8 @@ def seeded_batched_claim(n_polys: int, log_n: int, seed: int, dev):
 def timed_prove(prove, to_bytes, from_bytes) -> dict:
     """Drive one path: prove (timed to the end of the device's work),
     serialize, deserialize + verify on the host.  The launch counts are set
-    to 0 just before and read just after."""
+    to 0 just before and read just after; ``merkle_paths_built`` is read
+    after the serialization, before anything parses the proof."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -1515,6 +1560,7 @@ def timed_prove(prove, to_bytes, from_bytes) -> dict:
         prove_s = time.perf_counter() - t0
     d2h = stats.counts().get("d2h_copies", 0)
     proof_bytes = to_bytes(proof)
+    paths_built = stats.counts().get("merkle_paths_built", 0)
     digest = hashlib.sha256(proof_bytes).hexdigest()
     gc.collect()  # keep a collection of the prover's garbage out of the verifier's time
     t0 = time.perf_counter()
@@ -1524,7 +1570,7 @@ def timed_prove(prove, to_bytes, from_bytes) -> dict:
     return {
         "proof": proof, "prove_s": prove_s, "verify_s": verify_s, "proof_bytes": len(proof_bytes),
         "proof_sha256": digest,
-        "phases_s": dict(phases), "d2h_copies": d2h, "launches": counts,
+        "phases_s": dict(phases), "d2h_copies": d2h, "merkle_paths_built": paths_built, "launches": counts,
         "peak_device_bytes": torch.cuda.max_memory_allocated(),
     }
 
@@ -1574,6 +1620,8 @@ def pcs_phase(dev, log_sizes):
             raise RuntimeError("proof has the wrong shape")
         if res["d2h_copies"] > MAX_D2H["pcs"]:
             raise RuntimeError(f"a 2^{log_n} PCS prove made {res['d2h_copies']} device->host copies")
+        if res["merkle_paths_built"]:
+            raise RuntimeError(f"a 2^{log_n} PCS prove and its bytes built {res['merkle_paths_built']} paths")
         results.append({"log_n": log_n, **res})
         PATH_LAUNCHES[f"pcs 2^{log_n}"] = res["launches"]
         del proof
@@ -1605,6 +1653,9 @@ def batched_pcs_phase(dev, log_sizes) -> str:
         if res["d2h_copies"] > MAX_D2H["batched_pcs"]:
             raise RuntimeError(f"a {BATCH_POLYS} x 2^{log_n} batched prove made {res['d2h_copies']} "
                                "device->host copies")
+        if res["merkle_paths_built"]:
+            raise RuntimeError(f"a {BATCH_POLYS} x 2^{log_n} batched prove and its bytes built "
+                               f"{res['merkle_paths_built']} paths")
         results.append({"n_polys": BATCH_POLYS, "log_n": log_n, **res})
         PATH_LAUNCHES[f"batched pcs {BATCH_POLYS} x 2^{log_n}"] = res["launches"]
         del proof
@@ -1707,6 +1758,9 @@ def snark_phase(dev):
         PATH_LAUNCHES[label] = launch_counts()
         peak = torch.cuda.max_memory_allocated()
         blob = snark_proof_to_bytes(proof)
+        paths_built = stats.counts().get("merkle_paths_built", 0)
+        if paths_built:
+            raise RuntimeError(f"{label}: the prove and its bytes built {paths_built} paths")
         digest = hashlib.sha256(blob).hexdigest()
         gc.collect()  # keep a collection of the prover's garbage out of the verifier's time
         t0 = time.perf_counter()
@@ -1728,7 +1782,7 @@ def snark_phase(dev):
                          "pcs": sum(v for k, v in phases.items() if k not in snark_keys),
                          "pcs_parts": {k: v for k, v in phases.items() if k not in snark_keys}},
             "proof_bytes": len(blob), "proof_sha256": digest, "peak_device_bytes": peak, "d2h_copies": d2h,
-            "max_d2h": limit, "launches": PATH_LAUNCHES[label],
+            "max_d2h": limit, "merkle_paths_built": paths_built, "launches": PATH_LAUNCHES[label],
             "rounds_without_sync": snark_rounds_without_sync(kind, trace, config, digest),
         })
         del trace
@@ -2397,6 +2451,10 @@ def sharded_phase(dev, pcs_log_n: int, batched_log_n: int, pcs_sha: str, batched
                 if min(row["rounds_sharded"] + row["fri_rounds_sharded"] for row in rows) == 0 or (
                         "snark" in kind and min(row["sc_rounds_sharded"] for row in rows) == 0):
                     raise RuntimeError(f"{label} ran no sharded round of a kind it has")
+                # the replicated trees of the FRI tail open in one launch on rank 0
+                gathers = [row["launches"]["open_gather"] for row in rows]
+                if gathers[0] > 1 or any(gathers[1:]):
+                    raise RuntimeError(f"{label}: open_gather launches per rank {gathers}, at most one on rank 0")
                 labels.append(label)
                 PATH_LAUNCHES[label] = {k: sum(row["launches"][k] for row in rows) for k in rows[0]["launches"]}
                 line = dict(case=label, world=world, backend=rows[0]["backend"], proof_sha256=want,
@@ -2408,7 +2466,8 @@ def sharded_phase(dev, pcs_log_n: int, batched_log_n: int, pcs_sha: str, batched
                             staged_copies_per_rank=[row["staged_copies"] for row in rows],
                             rounds_sharded=rows[0]["rounds_sharded"], sc_rounds_sharded=rows[0]["sc_rounds_sharded"],
                             fri_rounds_sharded=rows[0]["fri_rounds_sharded"],
-                            d2h_copies_per_rank=[row["d2h_copies"] for row in rows], group_wall_s=group_s)
+                            d2h_copies_per_rank=[row["d2h_copies"] for row in rows],
+                            open_gather_launches_per_rank=gathers, group_wall_s=group_s)
                 if kind == "pcs":
                     line["single_rank_peak_device_bytes"] = pcs_peak
                 if kind.startswith("snark_"):

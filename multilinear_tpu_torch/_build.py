@@ -59,6 +59,7 @@ KERNELS = {
     "mlt_round_scalars": ("round_scalars", [_p, _p, _p, _p, _p, _p, _p, _int, _p]),
     "mlt_sumcheck_round_scalars": ("round_scalars", [_p, _p, _p, _int, _p, _p, _p, _p, _int, _p]),
     "mlt_sumcheck_max_degree": ("round_scalars", [_int]),
+    "mlt_open_gather": ("open_gather", [_p, _i64, _i64, _p, _int, _p]),
     # the kernels that sha256_leaves / merkle_levels / zm / kron / round_scalars
     # replaced, bound only for previous_routes.py (the smoke script's
     # comparison of routes)

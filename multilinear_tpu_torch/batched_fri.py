@@ -21,6 +21,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from .config import LOG_BLOWUP, NUM_QUERIES
@@ -29,6 +30,7 @@ from .field.scalar import Fp, TWO_INV, pow2_generator
 from .fri import (
     FriError,
     FriProverData,
+    OpenedQueries,
     QueryProof,
     _fold_codeword,
     _layer_inv_gens,
@@ -36,7 +38,7 @@ from .fri import (
     _rh_limbs,
     draw_query_indices,
 )
-from .merkle import MerklePath, MerkleTree
+from .merkle import MerklePath, MerkleTree, opening_shapes
 from .ntt import inv_gen_pows
 from .transcript import Transcript
 
@@ -131,17 +133,15 @@ class BatchedFriProverData:
         assert data.fri_data.last_element is not None
         return data
 
-    def open_queries(self, indices: Sequence[int]) -> List["BatchedQueryProof"]:
-        """The batch-tree column paths and the inner layers' pair paths of
-        all queries, gathered in ONE device->host copy."""
-        inner_n = self.batch_tree.num_leaves // 2
-        trees = self.fri_data.trees
-        inner_idx = self.fri_data.layer_indices([i % max(inner_n, 1) for i in indices])
-        paths = self.fri_data.open_many([self.batch_tree] + trees, [list(indices)] + inner_idx)
-        return [
-            BatchedQueryProof(paths[0][q], QueryProof([paths[1 + l][q] for l in range(len(trees))]))
-            for q in range(len(indices))
-        ]
+    def open_queries(self, indices: Sequence[int]) -> OpenedQueries:
+        """The query proofs of ``indices`` (``fri.OpenedQueries`` of
+        ``BatchedQueryProof``): the batch-tree column paths and the inner
+        layers' pair paths, in ONE device->host copy.  The inner layers open
+        each index modulo their leaf counts (reference src/fri/batched_fri.rs)."""
+        trees = [self.batch_tree] + self.fri_data.trees
+        idx = np.asarray(indices, dtype=np.int64)
+        return OpenedQueries(self.fri_data.gather_openings(trees, idx), opening_shapes(trees), idx,
+                             lambda paths: BatchedQueryProof(paths[0], QueryProof(paths[1:])))
 
 
 @dataclass
@@ -212,7 +212,7 @@ class BatchedFriProof:
 
     batch_commitment: bytes
     commitments: List[bytes]
-    queries: List[BatchedQueryProof]
+    queries: Sequence[BatchedQueryProof]  # a prover's: fri.OpenedQueries
     last_elem: Fp
     last_random: bytes
 

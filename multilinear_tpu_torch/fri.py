@@ -14,21 +14,23 @@ launch); the last fold of a chain, which
 commits nothing, is one launch of ``fold_codeword``.  The codeword stays on
 the device down to its last two elements: the kernels mask their own ragged
 edge, so there is no host tail.  Queries gather all 128 openings of all
-layers in one device->host copy.
+layers in one launch and one device->host copy; the proof holds them as
+they came, and the serializer packs them into its query section.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from . import stats
 from .config import LOG_BLOWUP, NUM_QUERIES
 from .field import cuda_ops, limbs, ops
 from .field.scalar import Fp, P, TWO_INV, pow2_generator
-from .merkle import MerklePath, MerkleTree, tree_levels
+from .merkle import MerklePath, MerkleTree, opening_shapes, paths_from_openings, tree_levels
 from .mle import to_coeffs_bitrev_padded
 from .ntt import fourstep_transform, inv_gen_pows
 from .transcript import Transcript
@@ -177,32 +179,19 @@ class FriProverData:
         """Every layer's root (the provers have fetched them all by now)."""
         return [t.root_bytes() for t in self.trees]
 
-    def layer_indices(self, indices: Sequence[int]) -> List[List[int]]:
-        """The leaf index of each query in each layer's tree: the index
-        halves per layer (reference open_query_at, src/fri/mod.rs:154-174:
-        current_index %= current_n after halving)."""
-        idx_per_tree = []
-        cur = list(indices)
-        cur_n = self.trees[0].num_leaves if self.trees else 0
-        for _ in self.trees:
-            idx_per_tree.append(cur)
-            cur_n //= 2
-            cur = [c % max(cur_n, 1) for c in cur]
-        return idx_per_tree
+    def gather_openings(self, trees: Sequence[MerkleTree], idx: np.ndarray) -> np.ndarray:
+        """The openings of ``trees`` at the query indices ``idx``, each tree
+        at ``idx`` modulo its leaf count - a layer's index halves with its
+        domain (reference open_query_at, src/fri/mod.rs:154-174) - on the
+        host in ONE device->host copy (``MerkleTree.gather_many``; a sharded
+        prover gathers over its ranks)."""
+        return MerkleTree.gather_many(trees, idx)
 
-    def open_many(self, trees: Sequence[MerkleTree], idx_lists) -> List[List[MerklePath]]:
-        """Open ``trees`` at many indices each (``MerkleTree.open_batch_many``;
-        a sharded prover gathers over its ranks)."""
-        return MerkleTree.open_batch_many(trees, idx_lists)
-
-    def open_queries(self, indices: Sequence[int]) -> List["QueryProof"]:
-        """Open many query indices at once: the gathers of all layers come
-        back in ONE device->host copy."""
-        paths = self.open_many(self.trees, self.layer_indices(indices))
-        return [
-            QueryProof([paths[l][q] for l in range(len(self.trees))])
-            for q in range(len(indices))
-        ]
+    def open_queries(self, indices: Sequence[int]) -> "OpenedQueries":
+        """The query proofs of ``indices`` (:class:`OpenedQueries`): the
+        openings of all layers, in ONE device->host copy."""
+        idx = np.asarray(indices, dtype=np.int64)
+        return OpenedQueries(self.gather_openings(self.trees, idx), opening_shapes(self.trees), idx, QueryProof)
 
 
 def _layer_inv_gens(gen: Fp, n_layers: int) -> List[Fp]:
@@ -279,6 +268,49 @@ class QueryProof:
             current_index = next_index
 
 
+class OpenedQueries(Sequence):
+    """A prover's query proofs, held as its trees' fetched openings
+    (``MerkleTree.gather_many``'s layout, tree t of ``shapes`` at ``idx``
+    modulo its leaf count).  While untouched the serializer packs them
+    straight into the proof's bytes (``serialize.pack_queries``).  Read as a
+    sequence, the query proofs are built once, ``build`` making one from a
+    query's path in each tree (``stats``' ``merkle_paths_built`` counts
+    the paths); from then on the serializer writes those objects, so a proof
+    changed in place serialises what it holds."""
+
+    def __init__(self, openings: np.ndarray, shapes, idx: np.ndarray, build: Callable[[list], object]):
+        self.openings, self.shapes, self.idx = openings, shapes, idx
+        self._build = build
+        self._built = None
+
+    @property
+    def untouched(self) -> bool:
+        return self._built is None
+
+    def _list(self) -> list:
+        if self._built is None:
+            paths = paths_from_openings(self.openings, self.shapes, [self.idx & (n - 1) for _, n in self.shapes])
+            self._built = [self._build([p[q] for p in paths]) for q in range(len(self.idx))]
+        return self._built
+
+    def __len__(self) -> int:
+        return len(self.idx)
+
+    def __getitem__(self, i):
+        return self._list()[i]
+
+    def __iter__(self):
+        return iter(self._list())
+
+    def __add__(self, other) -> list:
+        return self._list() + list(other)
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, (list, OpenedQueries)) and self._list() == list(other)
+
+    __hash__ = None
+
+
 def draw_query_indices(transcript: Transcript, n_pairs: int, count: int) -> List[int]:
     """Draw ``count`` query indices below ``n_pairs``, absorbing each as it
     is drawn (reference src/fri/mod.rs:269-273)."""
@@ -296,7 +328,7 @@ class FriProof:
     (reference FriProof, src/fri/mod.rs:240-248)."""
 
     commitments: List[bytes]
-    queries: List[QueryProof]
+    queries: Sequence[QueryProof]  # a prover's: OpenedQueries
     last_elem: Fp
     last_random: bytes
 

@@ -8,8 +8,11 @@ directions also re-derive the leaf index on verify):
   no byte-swapped copy, no concatenated messages), and the levels above it
   several to a launch (``tree_levels``), all slices of one allocation;
 * the digest levels stay on the device; opening gathers the leaf payloads
-  and sibling digests of ALL queries of ALL trees into one tensor, so the
-  query phase costs one device->host copy;
+  and sibling digests of ALL queries of ALL trees into one tensor, in one
+  launch (``open_gather``), so the query phase costs one device->host copy;
+  a prover's proof holds them as they came (``fri.OpenedQueries``) and the
+  serializer packs them into its bytes without building paths
+  (``serialize.pack_queries``);
 * path verification is host-side hashlib (it is O(queries * log n)).
 
 Levels are stored in NATURAL order: the children of digest i of level l+1
@@ -35,7 +38,7 @@ from . import stats
 from .field import limbs
 from .field.scalar import Fp
 from .sha256 import digests_to_bytes
-from .sha256_cuda import leaf_hashes, leaf_hashes_plain, tree_levels, tree_levels_plain  # noqa: F401
+from .sha256_cuda import leaf_hashes, leaf_hashes_plain, open_gather, tree_levels, tree_levels_plain  # noqa: F401
 
 
 class MerkleRootMismatch(ValueError):
@@ -120,49 +123,65 @@ class MerkleTree:
         return self._root_bytes
 
     # -- opening -------------------------------------------------------------
-    def _gather(self, idx: torch.Tensor) -> torch.Tensor:
-        """Flat int32 tensor: B*nq*4 payload limbs, then L*nq*8 sibling words."""
-        parts = [self.leaf_columns[:, idx].reshape(-1)]
-        cur = idx
-        for layer in self.layers[:-1]:
-            parts.append(layer[cur ^ 1].reshape(-1))
-            cur = cur >> 1
-        return torch.cat(parts)
-
-    def _assemble(self, flat: np.ndarray, idx: Sequence[int]) -> List["MerklePath"]:
-        B, nq, L = self.leaf_columns.shape[0], len(idx), len(self.layers) - 1
-        vals = limbs.unpack_ints(flat[: B * nq * 4].view(np.uint32).reshape(B, nq, 4))
-        sibs = digests_to_bytes(flat[B * nq * 4 :]).reshape(L, nq, 32)
-        paths = []
-        for q in range(nq):
-            cur = int(idx[q])
-            path = []
-            for l in range(L):
-                path.append((sibs[l, q].tobytes(), RIGHT if cur % 2 == 0 else LEFT))
-                cur //= 2
-            paths.append(MerklePath([Fp(int(vals[b, q])) for b in range(B)], path))
-        return paths
+    @staticmethod
+    def gather_many(trees: Sequence["MerkleTree"], idx) -> np.ndarray:
+        """The openings of ``trees`` at the query indices ``idx`` (each tree
+        at ``idx`` modulo its leaf count), laid out as
+        ``sha256_cuda.open_gather`` lays them out, on the host: one launch on
+        the card and ONE device->host copy."""
+        return stats.fetch(open_gather([(t.leaf_columns, t.layers[:-1]) for t in trees], idx))
 
     @staticmethod
     def open_batch_many(trees: Sequence["MerkleTree"], idx_lists) -> List[List["MerklePath"]]:
-        """Open several trees at many indices each with ONE device->host copy."""
-        dev = trees[0].layers[0].device
-        flats = [
-            t._gather(torch.as_tensor(list(il), dtype=torch.int64, device=dev))
-            for t, il in zip(trees, idx_lists)
-        ]
-        host = stats.fetch(torch.cat(flats))
-        out, off = [], 0
-        for t, il, f in zip(trees, idx_lists, flats):
-            out.append(t._assemble(host[off : off + f.numel()], il))
-            off += f.numel()
-        return out
+        """Open several trees at many indices each with ONE device->host copy
+        (one ``open_gather`` a tree, concatenated on the device)."""
+        lists = index_lists(trees, idx_lists)
+        flat = torch.cat([open_gather([(t.leaf_columns, t.layers[:-1])], il) for t, il in zip(trees, lists)])
+        return paths_from_openings(stats.fetch(flat), opening_shapes(trees), lists)
 
     def open_batch(self, indices: Sequence[int]) -> List["MerklePath"]:
         return MerkleTree.open_batch_many([self], [indices])[0]
 
     def open(self, index: int) -> "MerklePath":
         return self.open_batch([index])[0]
+
+
+def index_lists(trees: Sequence[MerkleTree], idx_lists) -> List[np.ndarray]:
+    """Each tree's indices as an int64 array; an index outside its tree
+    raises ``IndexError``."""
+    lists = [np.asarray(list(il), dtype=np.int64) for il in idx_lists]
+    for t, il in zip(trees, lists):
+        if il.size and (il.min() < 0 or il.max() >= t.num_leaves):
+            raise IndexError(f"a query index outside a tree of {t.num_leaves} leaves")
+    return lists
+
+
+def opening_shapes(trees: Sequence[MerkleTree]) -> List[Tuple[int, int]]:
+    """Each tree's (payload columns B, leaf count n): what reading its
+    openings needs."""
+    return [(t.leaf_columns.shape[0], t.num_leaves) for t in trees]
+
+
+def paths_from_openings(flat: np.ndarray, shapes, idx_lists) -> List[List["MerklePath"]]:
+    """The paths of trees of ``shapes`` (``opening_shapes``), each opened at
+    its own indices, from their openings in ``open_gather``'s layout."""
+    out, off = [], 0
+    for (B, n), il in zip(shapes, idx_lists):
+        nq, L = len(il), n.bit_length() - 1
+        vals = limbs.unpack_ints(flat[off : off + B * nq * 4].view(np.uint32).reshape(B, nq, 4))
+        off += B * nq * 4
+        sibs = digests_to_bytes(flat[off : off + L * nq * 8]).reshape(L, nq, 32)
+        off += L * nq * 8
+        paths = []
+        for q in range(nq):
+            cur = int(il[q])
+            path = []
+            for l in range(L):
+                path.append((sibs[l, q].tobytes(), RIGHT if cur % 2 == 0 else LEFT))
+                cur //= 2
+            paths.append(MerklePath([Fp(int(vals[b, q])) for b in range(B)], path))
+        out.append(paths)
+    return out
 
 
 @dataclass
@@ -176,6 +195,9 @@ class MerklePath:
 
     values: List[Fp]  # the leaf's field elements
     path: List[Tuple[bytes, int]]  # (sibling digest bytes, LEFT/RIGHT)
+
+    def __post_init__(self):
+        stats.bump("merkle_paths_built")
 
     def leaf_bytes(self) -> bytes:
         return b"".join(v.to_bytes() for v in self.values)

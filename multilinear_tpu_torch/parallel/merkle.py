@@ -13,22 +13,24 @@ blocks of q/W leaves (:func:`regroup_send` / :func:`regroup_recv`), which the
 are all-gathered (32 bytes each) and hashed up to the root on every rank.
 
 The digest levels are stored in natural order, as ``merkle.MerkleTree``'s,
-so an opened path is the unsharded tree's path.  Opening (:func:`open_batch_many`)
+so an opened path is the unsharded tree's path.  Opening (:func:`gather_many`)
 gathers on each rank what it holds - leaf payloads on the leaf's rank, the
 sibling digests of the lower levels on the subtree's rank, the top levels on
-rank 0 - with zeros elsewhere, and one all-reduce sums them: every entry
-comes from exactly one rank.
+rank 0, and the replicated trees of a FRI chain's tail on rank 0, all in one
+``open_gather`` - with zeros elsewhere, and one all-reduce sums them: every
+entry comes from exactly one rank.
 """
 
 from __future__ import annotations
 
 from typing import List, Sequence
 
+import numpy as np
 import torch
 
 from .. import stats
-from ..merkle import MerklePath, MerkleTree
-from ..sha256_cuda import tree_levels
+from ..merkle import MerklePath, MerkleTree, index_lists, opening_shapes, paths_from_openings
+from ..sha256_cuda import open_gather, tree_levels
 from . import gather_cyclic
 
 
@@ -90,8 +92,9 @@ class ShardedMerkleTree(MerkleTree):
         return gather_cyclic(self.leaf_columns, self.layout)
 
     def _gather(self, idx: torch.Tensor) -> torch.Tensor:
-        """As ``MerkleTree._gather`` for the whole tree, with zeros where
-        this rank does not hold the entry."""
+        """As ``sha256_cuda.open_gather`` lays out the whole tree's openings
+        at the leaf indices ``idx`` (a device tensor), with zeros where this
+        rank does not hold the entry."""
         W, r = self.layout.world, self.layout.rank
         zero = torch.zeros((), dtype=torch.int32, device=idx.device)
         own = (idx % W == r)[None, :, None]
@@ -113,21 +116,34 @@ class ShardedMerkleTree(MerkleTree):
         return torch.cat(parts)
 
 
-def open_batch_many(trees: Sequence[MerkleTree], idx_lists, layout) -> List[List[MerklePath]]:
-    """``MerkleTree.open_batch_many`` over sharded and replicated trees:
-    each rank gathers what it holds (a replicated tree on rank 0 only), one
-    all-reduce sums the gathers, ONE device->host copy brings them back."""
+def _gather(trees: Sequence[MerkleTree], idx: np.ndarray, layout) -> torch.Tensor:
+    """What this rank holds of the openings of ``trees`` at ``idx``, in
+    ``open_gather``'s layout, zeros elsewhere: a sharded tree's entries on
+    the ranks that hold them, the replicated trees all in one ``open_gather``
+    on rank 0."""
     dev = trees[0].layers[0].device
-    flats = []
-    for t, il in zip(trees, idx_lists):
-        idx = torch.as_tensor(list(il), dtype=torch.int64, device=dev)
-        f = t._gather(idx)
-        if not isinstance(t, ShardedMerkleTree) and layout.rank != 0:
-            f = torch.zeros_like(f)
-        flats.append(f)
-    host = stats.fetch(layout.comm.all_reduce_sum(torch.cat(flats)))
-    out, off = [], 0
-    for t, il, f in zip(trees, idx_lists, flats):
-        out.append(t._assemble(host[off : off + f.numel()], il))
-        off += f.numel()
-    return out
+    replicated = [t for t in trees if not isinstance(t, ShardedMerkleTree)]
+    sizes = [(4 * B + 8 * (n.bit_length() - 1)) * len(idx) for B, n in opening_shapes(replicated)]
+    if not replicated:
+        rest = iter(())
+    elif layout.rank == 0:
+        rest = iter(open_gather([(t.leaf_columns, t.layers[:-1]) for t in replicated], idx).split(sizes))
+    else:
+        rest = iter(torch.zeros(sum(sizes), dtype=torch.int32, device=dev).split(sizes))
+    return torch.cat([t._gather(torch.as_tensor(idx & (t.num_leaves - 1), device=dev))
+                      if isinstance(t, ShardedMerkleTree) else next(rest) for t in trees])
+
+
+def gather_many(trees: Sequence[MerkleTree], idx: np.ndarray, layout) -> np.ndarray:
+    """``MerkleTree.gather_many`` over sharded and replicated trees: each
+    rank gathers what it holds, one all-reduce sums the gathers, ONE
+    device->host copy brings them back."""
+    return stats.fetch(layout.comm.all_reduce_sum(_gather(trees, np.asarray(idx, dtype=np.int64), layout)))
+
+
+def open_batch_many(trees: Sequence[MerkleTree], idx_lists, layout) -> List[List[MerklePath]]:
+    """``MerkleTree.open_batch_many`` over sharded and replicated trees: one
+    gather a tree, one all-reduce and ONE device->host copy."""
+    lists = index_lists(trees, idx_lists)
+    flat = torch.cat([_gather([t], il, layout) for t, il in zip(trees, lists)])
+    return paths_from_openings(stats.fetch(layout.comm.all_reduce_sum(flat)), opening_shapes(trees), lists)

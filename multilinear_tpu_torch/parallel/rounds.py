@@ -52,7 +52,7 @@ from ..ntt import _pow_table, inv_gen_pows
 from ..sumcheck import PCS_DEGREE, SumcheckTables, _pack_tables_kernel, _partial_sums_kernel, identity_composition
 from ..transcript import Transcript
 from . import ShardLayout, gather_cyclic, to_cyclic
-from .merkle import ShardedMerkleTree, open_batch_many
+from .merkle import ShardedMerkleTree, gather_many
 from .ntt import check_sizes, encode_cyclic
 
 
@@ -257,8 +257,8 @@ class ShardedFriProverData(FriProverData):
             data.absorb_fold(transcript)
         return data
 
-    def open_many(self, trees, idx_lists):
-        return open_batch_many(trees, idx_lists, self.layout)
+    def gather_openings(self, trees, idx):
+        return gather_many(trees, idx, self.layout)
 
     @staticmethod
     def resume(payloads: Sequence[torch.Tensor], roots: Sequence[bytes], log_domain: int,

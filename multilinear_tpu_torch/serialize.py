@@ -11,6 +11,12 @@ bytes equal the JAX package's for the same proof.
 Codecs: the standalone FRI proof, the PCS proof, the batched FRI and
 batched PCS proofs, and the constraint-system SNARK proof (a tag byte for
 its PCS type, then the inner proof behind a length prefix).
+
+A prover's queries travel in its proof as the fetched openings
+(``fri.OpenedQueries``); the query section - 128 queries, each a path a
+tree, ~1.4 MB at 2^24 - is laid out from them by numpy (:func:`pack_queries`).
+The Python writers below are the reference it is tested against, and write
+every proof whose queries were read or changed.
 """
 
 from __future__ import annotations
@@ -18,10 +24,12 @@ from __future__ import annotations
 import struct
 from typing import List
 
+import numpy as np
+
 from .batched_fri import BatchedFriProof, BatchedQueryProof
 from .batched_pcs import BatchedPCSClaim, BatchedPCSProof
 from .field.scalar import Fp
-from .fri import FriProof, QueryProof
+from .fri import FriProof, OpenedQueries, QueryProof
 from .merkle import MerklePath
 from .pcs import PCSProof
 from .sumcheck import SumcheckPoly
@@ -124,13 +132,74 @@ def _read_query(r: _Reader) -> QueryProof:
     return QueryProof([_read_path(r) for _ in range(r.u64())])
 
 
+def _write_batched_query(w: _Writer, q: BatchedQueryProof):
+    _write_path(w, q.batch_path)
+    _write_query(w, q.query_proof)
+
+
+def _read_batched_query(r: _Reader) -> BatchedQueryProof:
+    batch_path = _read_path(r)
+    return BatchedQueryProof(batch_path, _read_query(r))
+
+
+def pack_queries(openings: np.ndarray, trees, idx: np.ndarray, batched: bool = False) -> bytes:
+    """The query section of a FRI proof (``batched``: of a batched FRI
+    proof) from its trees' fetched openings (``sha256_cuda.open_gather``'s
+    layout) at the query indices ``idx``: for each query, the bytes that
+    ``_write_query`` (``_write_batched_query``) writes, laid out a tree at a
+    time.  ``trees``: each tree's (payload columns B, leaf count n); a query
+    opens leaf idx mod n.  A FRI query is [T, path 0 .. path T-1], a batched
+    one [path 0 (the batch tree), T - 1, path 1 .. path T-1]; a path is
+    [B, B values, L, L x (sibling, direction)], the values the limbs' own
+    bytes, a sibling its digest words' big-endian bytes, and the direction
+    of level l bit l of the leaf index."""
+    nq = len(idx)
+    count_at = 1 if batched else 0
+    width = 8 + sum(16 + 16 * B + 33 * (n.bit_length() - 1) for B, n in trees)
+    rows = np.empty(nq * width, dtype=np.uint8)
+    raw, swapped = openings.view(np.uint8), openings.byteswap().view(np.uint8)
+    col, off = 0, 0  # the column of a query's row, the byte of the openings
+
+    def column(dtype, shape, at, strides):  # a strided view of the rows
+        return np.ndarray(shape, dtype=dtype, buffer=rows, offset=at, strides=strides)
+
+    def u64(v: int) -> None:
+        nonlocal col
+        column("<u8", (nq,), col, (width,))[:] = v
+        col += 8
+
+    for t, (B, n) in enumerate(trees):
+        if t == count_at:
+            u64(len(trees) - t)
+        L = n.bit_length() - 1
+        u64(B)
+        column("V16", (nq, B), col, (width, 16))[:] = raw[off : off + 16 * B * nq].view("V16").reshape(B, nq).T
+        col, off = col + 16 * B, off + 16 * B * nq
+        u64(L)
+        column("V32", (nq, L), col, (width, 33))[:] = swapped[off : off + 32 * L * nq].view("V32").reshape(L, nq).T
+        column(np.uint8, (nq, L), col + 32, (width, 33))[:] = ((idx & (n - 1))[:, None] >> np.arange(L)) & 1
+        col, off = col + 33 * L, off + 32 * L * nq
+    if len(trees) == count_at:
+        u64(0)
+    if off != openings.nbytes:
+        raise ValueError(f"{openings.nbytes} bytes of openings for trees {trees} at {nq} queries")
+    return struct.pack("<Q", nq) + rows.tobytes()
+
+
+def _write_queries(w: _Writer, queries, write_query, batched: bool = False) -> None:
+    if isinstance(queries, OpenedQueries) and queries.untouched:
+        w.raw(pack_queries(queries.openings, queries.shapes, queries.idx, batched))
+        return
+    w.u64(len(queries))
+    for q in queries:
+        write_query(w, q)
+
+
 def _write_fri(w: _Writer, proof: FriProof):
     w.u64(len(proof.commitments))
     for c in proof.commitments:
         w.digest(c)
-    w.u64(len(proof.queries))
-    for q in proof.queries:
-        _write_query(w, q)
+    _write_queries(w, proof.queries, _write_query)
     w.felt(proof.last_elem)
     w.digest(proof.last_random)
 
@@ -204,10 +273,7 @@ def _write_batched_fri(w: _Writer, proof: BatchedFriProof):
     w.u64(len(proof.commitments))
     for c in proof.commitments:
         w.digest(c)
-    w.u64(len(proof.queries))
-    for q in proof.queries:
-        _write_path(w, q.batch_path)
-        _write_query(w, q.query_proof)
+    _write_queries(w, proof.queries, _write_batched_query, batched=True)
     w.felt(proof.last_elem)
     w.digest(proof.last_random)
 
@@ -215,11 +281,7 @@ def _write_batched_fri(w: _Writer, proof: BatchedFriProof):
 def _read_batched_fri(r: _Reader) -> BatchedFriProof:
     batch_commitment = r.digest()
     commitments = [r.digest() for _ in range(r.u64())]
-    queries = []
-    for _ in range(r.u64()):
-        bp = _read_path(r)
-        qp = _read_query(r)
-        queries.append(BatchedQueryProof(bp, qp))
+    queries = [_read_batched_query(r) for _ in range(r.u64())]
     last_elem = r.felt()
     last_random = r.digest()
     return BatchedFriProof(batch_commitment, commitments, queries, last_elem, last_random)

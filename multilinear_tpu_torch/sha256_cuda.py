@@ -11,6 +11,10 @@ one compression (``csrc/sha256.cuh``):
 * ``tree_levels``   - every level above the leaf digests, up to eleven
   levels a launch (``csrc/merkle_levels.cu``, counted as ``merkle_levels``).
 
+Beside them, ``open_gather`` (``csrc/open_gather.cu``) gathers the query
+openings of every tree of a proof - leaf payloads and sibling digests - in
+one launch.
+
 A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
 tensor-code version beside each wrapper.  Each launch is counted in
 ``stats`` as ``launch.<kernel>``.
@@ -18,9 +22,11 @@ tensor-code version beside each wrapper.  Each launch is counted in
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import stats
+from .field import limbs
 
 _K = [
     0x428a2f98, 0x71374491, 0xb5c0fbcf, 0xe9b5dba5, 0x3956c25b, 0x59f111f1,
@@ -253,3 +259,79 @@ def _tree_levels_launch(t: torch.Tensor, plan):
             off += n_in >> j
         cur = levels[-1]
     return levels
+
+
+# ---------------------------------------------------------------------------
+# Merkle openings: every tree's payloads and siblings in one launch
+# ---------------------------------------------------------------------------
+
+
+def open_gather_plain(trees, idx: np.ndarray) -> torch.Tensor:
+    """Plain version of :func:`open_gather`: per tree, the payload columns
+    gathered at the indices and each level's siblings, concatenated."""
+    parts = []
+    for cols, levels in trees:
+        cur = torch.as_tensor(idx & (cols.shape[1] - 1), device=cols.device)
+        parts.append(cols[:, cur].reshape(-1))
+        for level in levels:
+            parts.append(level[cur ^ 1].reshape(-1))
+            cur = cur >> 1
+    return torch.cat(parts)
+
+
+def open_gather_table(trees, idx: np.ndarray):
+    """The table ``csrc/open_gather.cu`` reads - the indices, then one
+    Segment (seven int64) a payload column and a digest level, in the order
+    of the output - and the output's length in int32 words."""
+    dev, nq = trees[0][0].device, len(idx)
+    segs, out = [], 0  # out: uint4 written so far
+    for cols, levels in trees:
+        if cols.dtype != torch.int32 or cols.device != dev:
+            raise TypeError(f"open_gather: payload columns must be int32 on {dev}")
+        if cols.dim() != 3 or cols.shape[2] != 4:
+            raise ValueError(f"open_gather: payload columns must be (B, n, 4), got {tuple(cols.shape)}")
+        B, n, _ = cols.shape
+        sb, sn, s1 = cols.stride()
+        if n & (n - 1) or len(levels) != n.bit_length() - 1:
+            raise ValueError(f"open_gather: a tree of {n} leaves with {len(levels)} levels below its root")
+        if s1 != 1 or sb % 4 or sn % 4 or cols.data_ptr() % 16:
+            raise ValueError("open_gather: payload elements must be whole 16-byte-aligned units")
+        for b in range(B):
+            segs.append((cols.data_ptr() + 4 * sb * b, sn // 4, 1, n - 1, 0, 0, out + b * nq))
+        out += B * nq
+        for lvl, level in enumerate(levels):
+            if (level.dtype != torch.int32 or level.device != dev or tuple(level.shape) != (n >> lvl, 8)
+                    or level.stride() != (8, 1) or level.data_ptr() % 16):
+                raise ValueError(f"open_gather: level {lvl} must be contiguous ({n >> lvl}, 8) int32 digests on {dev}")
+            segs.append((level.data_ptr(), 2, 2, n - 1, lvl, 1, out))
+            out += 2 * nq
+    table = np.concatenate([idx, np.array(segs, dtype=np.int64).reshape(-1)])
+    return table, len(segs), 4 * out
+
+
+def open_gather(trees, idx) -> torch.Tensor:
+    """The openings of Merkle trees at query indices, one flat int32 tensor
+    on the trees' device: for each tree in order, its B x nq x 4 payload
+    limbs (leaf i_q's column b at [b, q]), then its L x nq x 8 sibling
+    digest words (level l: the sibling of node i_q >> l).
+
+    ``trees``: (leaf_columns (B, n, 4), levels) pairs, ``levels`` the digest
+    levels below the root, the (n, 8) leaf digests first; n is a power of
+    two.  ``idx``: the query indices (host integers), which every tree opens,
+    each index taken modulo n - so a FRI chain's trees all take the same
+    query indices.  On the card: one copy of the indices and the table, and
+    one launch (``csrc/open_gather.cu``)."""
+    if not trees:
+        raise ValueError("open_gather: no trees")
+    idx = np.ascontiguousarray(idx, dtype=np.int64).reshape(-1)
+    dev = trees[0][0].device
+    if dev.type == "cpu":
+        return open_gather_plain(trees, idx)
+    if dev.type != "cuda":
+        raise ValueError(f"open_gather: unsupported device {dev}")
+    table, n_segments, n_words = open_gather_table(trees, idx)
+    out = torch.empty(n_words, dtype=torch.int32, device=dev)
+    if n_words:
+        table = limbs.to_device(torch.from_numpy(table), dev)
+        _launch("open_gather", "mlt_open_gather", dev, table.data_ptr(), len(idx), n_segments, out.data_ptr())
+    return out

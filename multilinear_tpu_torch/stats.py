@@ -20,6 +20,10 @@ assert which one ran:
   ``butterfly`` (``ntt._pease_rows``);
 * ``fri_folds_fused`` / ``fri_folds_plain`` - folds through
   ``fold_commit_leaves`` and through ``fold_codeword`` (``fri``);
+* ``merkle_paths_built`` - ``merkle.MerklePath`` objects made: a prove and
+  its serialization make none (the openings go from the gather to the
+  proof's bytes by numpy), a reader of a proof's queries (``verify``,
+  ``*_from_bytes``, ``open_batch``) makes one a path;
 * a sharded prove (``parallel``): ``rounds_sharded`` - PCS rounds (plain or
   batched) whose sums were added over the ranks; ``sc_rounds_sharded`` -
   the same for a SNARK's trace-sumcheck rounds; ``fri_rounds_sharded`` -

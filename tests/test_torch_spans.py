@@ -162,6 +162,7 @@ class _FakeStream:
 @pytest.mark.parametrize("module,kernel,symbol", [
     (cuda_ops, "butterfly2", "mlt_butterfly2"),
     (sha256_cuda, "merkle_levels", "mlt_merkle_levels"),
+    (sha256_cuda, "open_gather", "mlt_open_gather"),
 ])
 def test_launches_are_counted_in_stats(monkeypatch, module, kernel, symbol):
     from multilinear_tpu_torch import _build
