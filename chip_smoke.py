@@ -2467,7 +2467,8 @@ def sharded_phase(dev, pcs_log_n: int, batched_log_n: int, pcs_sha: str, batched
                             rounds_sharded=rows[0]["rounds_sharded"], sc_rounds_sharded=rows[0]["sc_rounds_sharded"],
                             fri_rounds_sharded=rows[0]["fri_rounds_sharded"],
                             d2h_copies_per_rank=[row["d2h_copies"] for row in rows],
-                            open_gather_launches_per_rank=gathers, group_wall_s=group_s)
+                            open_gather_launches_per_rank=gathers,
+                            launches_per_rank=[sum(row["launches"].values()) for row in rows], group_wall_s=group_s)
                 if kind == "pcs":
                     line["single_rank_peak_device_bytes"] = pcs_peak
                 if kind.startswith("snark_"):

@@ -26,6 +26,10 @@ through host tensors: one copy to the host and one back, counted in
 ``stats`` as ``collective_staged_copies``.  The backend is fixed when the
 process group is made and never swapped.
 
+Each of the four calls (:meth:`Comm.all_to_all`, :meth:`Comm.all_gather`,
+:meth:`Comm.all_reduce_sum`, :meth:`Comm.barrier`) is a ``collective`` span
+(``utils.span``), staging copies included.
+
 Counters (``stats``): ``collectives`` (calls), ``collective_bytes`` (the
 bytes this rank must get to the other ranks: an all-to-all's chunks for the
 others, an all-gather's chunk times W - 1, an all-reduce's tensor times
@@ -38,6 +42,7 @@ import torch
 
 from .. import stats
 from ..field import ops
+from ..utils import span
 
 # the collectives gloo runs on CUDA tensors itself (broadcast too, which the
 # prover does not use); the others are staged through the host
@@ -102,47 +107,51 @@ class Comm:
 
         if send.shape[0] != self.world:
             raise ValueError(f"all_to_all: {send.shape[0]} chunks for {self.world} ranks")
-        send = send.contiguous()
-        self._count(send.numel() * send.element_size() * (self.world - 1) / self.world)
-        dev = send.device
-        staged = self._staged("all_to_all", send)
-        inp = self._to_host(send) if staged else send
-        out = torch.empty_like(inp)
-        dist.all_to_all_single(out, inp)
-        return self._back(out, dev) if staged else out
+        with span("collective"):
+            send = send.contiguous()
+            self._count(send.numel() * send.element_size() * (self.world - 1) / self.world)
+            dev = send.device
+            staged = self._staged("all_to_all", send)
+            inp = self._to_host(send) if staged else send
+            out = torch.empty_like(inp)
+            dist.all_to_all_single(out, inp)
+            return self._back(out, dev) if staged else out
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` from every rank, stacked by rank: (W,) + t.shape."""
         import torch.distributed as dist
 
-        t = t.contiguous()
-        self._count(t.numel() * t.element_size() * (self.world - 1))
-        dev = t.device
-        staged = self._staged("all_gather", t)
-        inp = self._to_host(t) if staged else t
-        outs = [torch.empty_like(inp) for _ in range(self.world)]
-        dist.all_gather(outs, inp)
-        out = torch.stack(outs)
-        return self._back(out, dev) if staged else out
+        with span("collective"):
+            t = t.contiguous()
+            self._count(t.numel() * t.element_size() * (self.world - 1))
+            dev = t.device
+            staged = self._staged("all_gather", t)
+            inp = self._to_host(t) if staged else t
+            outs = [torch.empty_like(inp) for _ in range(self.world)]
+            dist.all_gather(outs, inp)
+            out = torch.stack(outs)
+            return self._back(out, dev) if staged else out
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         """The elementwise sum of ``t`` over the ranks (a new tensor)."""
         import torch.distributed as dist
 
-        out = t.contiguous().clone()
-        self._count(out.numel() * out.element_size() * 2 * (self.world - 1) / self.world)
-        dev = out.device
-        staged = self._staged("all_reduce", out)
-        buf = self._to_host(out) if staged else out
-        dist.all_reduce(buf, op=dist.ReduceOp.SUM)
-        return self._back(buf, dev) if staged else buf
+        with span("collective"):
+            out = t.contiguous().clone()
+            self._count(out.numel() * out.element_size() * 2 * (self.world - 1) / self.world)
+            dev = out.device
+            staged = self._staged("all_reduce", out)
+            buf = self._to_host(out) if staged else out
+            dist.all_reduce(buf, op=dist.ReduceOp.SUM)
+            return self._back(buf, dev) if staged else buf
 
     def barrier(self) -> None:
         """Wait until every rank has called it (a sharded save returns only
         once rank 0 has written the file)."""
         import torch.distributed as dist
 
-        dist.barrier()
+        with span("collective"):
+            dist.barrier()
 
     def exact_sum(self, lanes: torch.Tensor) -> torch.Tensor:
         """The sum over the ranks of field values given as unreduced int64

@@ -19,10 +19,16 @@ caller's choice.
 The backend is chosen here, once, and printed: NCCL when each rank has a
 card of its own (``cuda:LOCAL_RANK``), gloo when the ranks run on the CPU or
 share one card - NCCL refuses two ranks on one GPU.  Nothing swaps it later.
+
+The group has a timeout (:data:`TIMEOUT_S`): a collective that a rank never
+joins - the rank died or hangs - ends on the others within it (gloo raises;
+NCCL's watchdog aborts the communicator and ends the process), so no rank
+waits forever.
 """
 
 from __future__ import annotations
 
+import datetime
 import os
 import sys
 from typing import Optional
@@ -30,6 +36,9 @@ from typing import Optional
 import torch
 
 from . import ShardLayout
+
+# the longest a rank waits in a collective (or at the rendezvous) for the others
+TIMEOUT_S = 180.0
 
 
 def choose(world: int, device: str = "cuda", local_rank: int = 0):
@@ -56,7 +65,8 @@ def init(rank: int, world: int, addr: str, device: str = "cuda", local_rank: Opt
     backend, dev = choose(world, device, local_rank)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    dist.init_process_group(backend, init_method=addr, rank=rank, world_size=world)
+    dist.init_process_group(backend, init_method=addr, rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=TIMEOUT_S))
     print(f"multilinear_tpu_torch.parallel: rank {rank} of {world}, backend {backend}, device {dev}",
           file=sys.stderr, flush=True)
     return ShardLayout(world=world, rank=rank, device=dev, backend=backend)

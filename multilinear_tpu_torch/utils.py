@@ -8,7 +8,8 @@ but two flag tests unless one of these is live:
   a user annotation; under ``torch.autograd.profiler.emit_nvtx`` an NVTX
   range).  It never synchronises.
 * ``collect_phases()``: a span named as one of ``PHASES`` synchronises the
-  device when it closes and adds its time to the phase dict.  This is a
+  device when it closes (one of ``NESTED_PHASES`` also when it opens) and
+  adds its time to the phase dict.  This is a
   second, synchronising clock; the other spans do not touch it.
 
 The spans of the prove paths, outermost first ("<" reads "inside"):
@@ -24,7 +25,15 @@ The spans of the prove paths, outermost first ("<" reads "inside"):
   ``sumcheck_round`` < ``sumcheck_rounds``: one trace-sumcheck round
   (``sumcheck.DeviceSumcheckRounds.launch``); ``replay`` < ``rounds`` or
   ``sumcheck_rounds``: the rounds' one copy and the host transcript's
-  replay; ``open`` < ``queries``: the query openings.
+  replay; ``open`` < ``queries``: the query openings;
+* ``collective`` < the layer it runs in (``encode``, ``commit_l0``,
+  ``tables``, ``rounds``, ``queries``, ...): one call of
+  ``parallel.comm.Comm`` in a sharded prove; a one-card prove makes none.
+  It is also a phase, nested in the phase of its layer, whose seconds keep
+  including it: under ``collect_phases`` the ``collective`` entry is the
+  collectives' share of those phases, not time beside them.  It also
+  synchronises when it opens, so that the work its layer queued before the
+  call stays in the layer's time and out of the collective's.
 """
 
 from __future__ import annotations
@@ -37,8 +46,10 @@ import torch
 from torch._C._autograd import _profiler_enabled
 
 # the spans that are also phases of ``collect_phases``
-PHASES = frozenset(
-    {"encode", "commit_l0", "commit_batch", "tables", "rounds", "queries", "snark_tables", "sumcheck_rounds"})
+PHASES = frozenset({"encode", "commit_l0", "commit_batch", "tables", "rounds", "queries", "snark_tables",
+                    "sumcheck_rounds", "collective"})
+# the phases nested in another phase: they start from an empty queue
+NESTED_PHASES = frozenset({"collective"})
 
 _PHASES: Optional[dict] = None
 
@@ -68,7 +79,11 @@ class span:
         if _profiler_enabled():
             self._range = torch.profiler.record_function(self.name)
             self._range.__enter__()
-        self._t0 = time.perf_counter() if _PHASES is not None and self.name in PHASES else None
+        self._t0 = None
+        if _PHASES is not None and self.name in PHASES:
+            if self.name in NESTED_PHASES and torch.cuda.is_initialized():
+                torch.cuda.synchronize()
+            self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc) -> None:

@@ -436,3 +436,137 @@ def test_importing_the_parallel_package_starts_nothing():
     res = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env, capture_output=True, text=True,
                          timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+# -- the collective span, the NVLink reader's bytes, global indices ------------
+
+PCS_PHASES = {"encode", "commit_l0", "tables", "rounds", "queries"}
+
+
+@pytest.mark.parametrize("W", WORLDS)
+def test_sharded_prove_records_the_collective_phase_and_span(ranks, W):
+    got, _ = ranks
+    for rank in got[W]:
+        traced = rank["pcs10:traced"]
+        phases = traced["phases"]
+        assert set(phases) == PCS_PHASES | {"collective"}
+        # nested in the layers' phases, whose times include it
+        assert 0 < phases["collective"] <= sum(phases[p] for p in PCS_PHASES)
+        coll = [outer for name, outer in traced["spans"] if name == "collective"]
+        assert len(coll) == traced["collectives"] > 0
+        assert all(outer[0] == "proof" and "collective" not in outer for outer in coll)
+        assert {outer[1] for outer in coll} == {"encode", "commit_l0", "rounds", "queries"}
+
+
+@pytest.mark.parametrize("W", WORLDS)
+@pytest.mark.parametrize("n", worker.PCS_LOG_N)
+def test_nvlink_roofline_bytes_are_the_bytes_rank0_counts(ranks, W, n):
+    from portbench.core import spec
+
+    got, _ = ranks
+    counted = got[W][0][f"pcs{n}:stats"]["collective_bytes"]
+    assert spec.metric("nvlink_roofline").proof_bytes(n, W, 128) == counted
+
+
+class _Level:
+    """A tree level of ``n`` nodes that holds nothing: node i reads as i in
+    each of its ``width`` words.  Indexing checks the indices and keeps them."""
+
+    device = torch.device("cpu")
+
+    def __init__(self, n: int, width: int, seen: list):
+        self.shape, self.seen = (n, width), seen
+
+    def __getitem__(self, key):
+        i = key[1] if isinstance(key, tuple) else key
+        assert i.dtype == torch.int64 and int(i.min()) >= 0 and int(i.max()) < self.shape[0]
+        self.seen.append(i)
+        got = i[:, None].expand(-1, self.shape[1]).to(torch.int32)
+        return got[None] if isinstance(key, tuple) else got
+
+
+@pytest.mark.parametrize("W", WORLDS)
+@pytest.mark.parametrize("which", ["first", "last"])
+def test_sharded_openings_place_global_positions_of_2p29_and_2p30(W, which):
+    """The openings of a 2^30-leaf sharded tree at leaves near 2^29 and 2^30
+    (a 2^30-value codeword's positions), on a tree whose levels hold nothing:
+    each rank reads the leaf and sibling it holds, at its local index."""
+    from types import SimpleNamespace
+
+    from multilinear_tpu_torch.parallel.merkle import ShardedMerkleTree, _gather
+
+    depth, r = 30, 0 if which == "first" else W - 1
+    seen = []
+    tree = ShardedMerkleTree.__new__(ShardedMerkleTree)
+    local = [_Level((1 << depth) // W >> level, 8, seen) for level in range(depth - W.bit_length() + 2)]
+    top = [_Level(W >> level, 8, seen) for level in range(1, W.bit_length())]
+    tree.layers, tree.n_local_levels = local + top, len(local)
+    tree.leaf_columns, tree.roots = _Level((1 << depth) // W, 4, seen), _Level(W, 8, seen)
+    tree.layout = SimpleNamespace(world=W, rank=r)
+    positions = [0, 1, 2**29 - 2, 2**29 - 1, 2**29, 2**29 + 12_345_677, 2**30 - 2, 2**30 - 1]
+    got = _gather([tree], np.array(positions, dtype=np.int64), tree.layout)
+    nq = len(positions)
+    assert got.shape == (nq * 4 + depth * nq * 8,)
+    assert got[: nq * 4].view(nq, 4)[:, 0].tolist() == [p // W if p % W == r else 0 for p in positions]
+    off = nq * 4
+    for level in range(depth):
+        sib = [(p >> level) ^ 1 for p in positions]
+        per_rank = (1 << (depth - level)) // W
+        if level < len(local) - 1:  # the subtrees' levels: the rank that holds the sibling
+            want = [s % per_rank if s // per_rank == r else 0 for s in sib]
+        else:  # the roots and above: rank 0 alone
+            want = sib if r == 0 else [0] * nq
+        assert got[off : off + nq * 8].view(nq, 8)[:, 0].tolist() == want, level
+        off += nq * 8
+    assert max(int(i.max()) for i in seen) < 2**30 // W
+
+
+def test_query_packing_writes_the_directions_of_leaves_near_2p29():
+    from multilinear_tpu_torch.serialize import pack_queries
+
+    n, L, B = 1 << 29, 29, 2
+    idx = np.array([0, 1, n - 2, n - 1, 123_456_789, (1 << 28) + 3], dtype=np.int64)
+    nq = len(idx)
+    blob = pack_queries(np.zeros(B * nq * 4 + L * nq * 8, dtype=np.int32), [(B, n)], idx)
+    width = 8 + 8 + 16 * B + 8 + 33 * L
+    assert len(blob) == 8 + nq * width
+    for q, i in enumerate(idx):
+        row = blob[8 + q * width : 8 + (q + 1) * width]
+        dirs = [row[8 + 8 + 16 * B + 8 + 33 * level + 32] for level in range(L)]
+        assert dirs == [(int(i) >> level) & 1 for level in range(L)]
+
+
+_STALLED_RANK = """
+import sys, time
+import torch
+from multilinear_tpu_torch.parallel import multihost
+multihost.TIMEOUT_S = 3.0
+rank, port = int(sys.argv[1]), sys.argv[2]
+layout = multihost.init(rank, 2, "tcp://127.0.0.1:" + port, device="cpu")
+if rank == 1:
+    time.sleep(60)  # alive, and never joins the collective
+    sys.exit(0)
+t0 = time.monotonic()
+try:
+    layout.comm.all_reduce_sum(torch.ones(4, dtype=torch.int64))
+except RuntimeError:
+    print("raised after", time.monotonic() - t0, flush=True)
+    sys.exit(3)
+sys.exit(0)
+"""
+
+
+def test_a_rank_that_never_joins_ends_the_collective_within_the_timeout():
+    port = str(_free_port())
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    procs = [subprocess.Popen([sys.executable, "-c", _STALLED_RANK, str(r), port], cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in range(2)]
+    try:
+        out, err = procs[0].communicate(timeout=120)
+        assert procs[0].returncode == 3, err[-2000:]
+        assert float(out.split()[-1]) < 30
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()

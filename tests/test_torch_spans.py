@@ -6,6 +6,8 @@ the prove nests them; under ``collect_phases`` the phase spans fill the same
 keys as before; with neither, a span enters nothing.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -183,3 +185,29 @@ def test_one_counter_registry():
         assert not hasattr(module, "_LAUNCHES")
         assert not hasattr(module, "launch_counts") and not hasattr(module, "reset_launch_counts")
     assert not hasattr(utils, "PhaseTimer")
+
+
+@pytest.mark.parametrize("kind", ["pcs", "batched", "snark"])
+def test_a_one_card_prove_makes_no_collective(kind):
+    spans, phases = _spans(kind)
+    assert "collective" not in {name for name, _ in spans} and "collective" not in phases
+
+
+def test_the_collective_phase_leaves_out_the_work_queued_before_it(monkeypatch):
+    """A collective's phase opens on an empty queue: the kernels its layer
+    queued before the call drain in the layer's time, not the collective's."""
+    queue = []  # seconds of device work queued and not yet run
+
+    def synchronize(device=None):
+        time.sleep(sum(queue))
+        queue.clear()
+
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize", synchronize)
+    with utils.collect_phases() as phases:
+        with utils.span("rounds"):
+            queue.append(0.3)  # the round's folds and hashing
+            with utils.span("collective"):
+                queue.append(0.01)  # the all-reduce itself
+    assert 0.01 <= phases["collective"] < 0.15
+    assert phases["rounds"] >= 0.31

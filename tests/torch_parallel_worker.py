@@ -157,6 +157,30 @@ def checkpoint_session(case, config, layout=None):
             snark_proof_to_bytes)
 
 
+def traced_pcs(layout) -> dict:
+    """The 2^10 PCS prove under ``collect_phases`` and a CPU profile: the
+    phases, and each span with the span it opened in (user annotations,
+    nested by their times)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from multilinear_tpu_torch import utils
+
+    evals, point, output = inputs("pcs10")
+    block = layout.shard_rows(evals)
+    stats.reset()
+    with utils.collect_phases() as phases, profile(activities=[ProfilerActivity.CPU]) as prof:
+        PCSProof.prove(point, output, block, Transcript(), CPU, layout)
+    marks = sorted((e.start_ns(), -e.end_ns(), e.name()) for e in prof.profiler.kineto_results.events()
+                   if e.is_user_annotation() and e.device_type() == torch.autograd.DeviceType.CPU)
+    spans, open_ = [], []
+    for start, neg_end, name in marks:
+        while open_ and open_[-1][0] <= start:
+            open_.pop()
+        spans.append([name, [n for _, n in open_]])
+        open_.append((-neg_end, name))
+    return {"phases": dict(phases), "spans": spans, "collectives": stats.counts().get("collectives", 0)}
+
+
 def run(layout, out_dir: str) -> dict:
     from multilinear_tpu_torch.parallel import gather_cyclic
     from multilinear_tpu_torch.parallel.merkle import ShardedMerkleTree, open_batch_many
@@ -177,6 +201,8 @@ def run(layout, out_dir: str) -> dict:
         evals, point, output = inputs(f"pcs{n}")
         counted(f"pcs{n}", lambda: pcs_proof_to_bytes(
             PCSProof.prove(point, output, layout.shard_rows(evals), Transcript(), CPU, layout)).hex())
+
+    out["pcs10:traced"] = traced_pcs(layout)
 
     x = inputs("ntt")
     a, b = split(NTT_LOG_N)
