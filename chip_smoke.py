@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from multilinear_tpu_torch import _build, fri, merkle, mle, ntt, previous_routes, sha256, sha256_cuda, stats
+from multilinear_tpu_torch import composition as cmp
 from multilinear_tpu_torch import device_transcript as dtr
 from multilinear_tpu_torch.batched_pcs import BatchedPCSClaim, BatchedPCSProof, BatchedPCSProverSession
 from multilinear_tpu_torch.config import NUM_QUERIES, ProverConfig
@@ -216,6 +217,18 @@ KERNELS = {
     "open_gather": {
         "source": "multilinear_tpu_torch/csrc/open_gather.cu",
         "replaces": "multilinear_tpu/merkle.py:230",
+    },
+    # a constraint-sumcheck round's sums and fold: jnp code inside the TPU's
+    # round program (`_partial_sums_kernel`, `_fold_kernel` in
+    # `_sc_round_body`), not TPU kernels; here the composition runs as a
+    # traced program in one launch, and the fold is another
+    "sumcheck_sums": {
+        "source": "multilinear_tpu_torch/csrc/sumcheck_round.cu",
+        "replaces": "multilinear_tpu/sumcheck.py:163",
+    },
+    "sumcheck_fold": {
+        "source": "multilinear_tpu_torch/csrc/sumcheck_round.cu",
+        "replaces": "multilinear_tpu/sumcheck.py:191",
     },
 }
 
@@ -801,6 +814,120 @@ def sumcheck_round_scalars_cases(dev, rng, main: dict) -> list:
     return rows
 
 
+def program_ops(program, degree: int) -> np.ndarray:
+    """Integer operations of ``sumcheck_sums`` a row pair: each column's
+    and the delta row's step and its additions at the later points, and at
+    each point the program, the delta multiply and four 64-bit lane adds."""
+    n = len(program.cols) + 1
+    per_point = sum((OPS["add"], OPS["sub"], OPS["mul"], OPS["sub"])[op] for op, _, _, _ in program.instrs)
+    return (n * OPS["sub"] + (degree - 1) * n * OPS["add"]
+            + degree * (per_point + OPS["mul"] + np.array([0.0, 0.0, 8.0])))
+
+
+def mixed_composition(e: int):
+    """A composition of degree e in column 0 that reads columns, aux
+    scalars, int and Fp constants through +, -, * and unary -."""
+
+    def comp(cols, aux):
+        acc = cols[0]
+        for _ in range(e - 1):
+            acc = acc * cols[0]
+        return (acc - 3 * cols[1]) * aux[0] + (-cols[2]) * Fp(_K) + aux[1] * aux[0] - 7 + (5 - cols[-1])
+
+    return comp
+
+
+def chain_composition(width: int):
+    """sum_j v_j v_(j+1) over ``width`` columns: 2 width slots a thread at
+    degree 3, more than 256 threads a block hold."""
+
+    def comp(cols, aux):
+        acc = 0
+        for j in range(width - 1):
+            acc = acc + cols[j] * cols[j + 1]
+        return acc * aux[0]
+
+    return comp
+
+
+def sumcheck_round_cases(dev, rng, main: dict) -> list:
+    """``sumcheck_sums`` and ``sumcheck_fold`` against their plain versions
+    on the card: the euclid4 composition (P4's and the benchmark's SNARK) at
+    4 x 2^22 rows, d = 3 - the main rows, timed with the bound of the
+    table's bytes read once (the sums) and of the fold's bytes besides (the
+    round), and of the program's operations -, and at the card's degree
+    limit on 2^6 rows (a program of two instructions: the plain version
+    launches PyTorch's kernels point by point), then masked constraints
+    of 11 and 12 slots (either side of the default 48 KiB of shared memory at
+    256 threads), a composition of every instruction at total
+    degrees 1, 2, 18, 48 columns (fewer threads a block, more than 48 KiB of
+    shared memory), a host scalar, and tables of 2 and 4 rows."""
+    euclid4 = ConstraintSet(*SNARK_CONSTRAINTS["pythagorean"]).composition_fn()
+    limit = dtr.sumcheck_degree_limit(dev)
+    log_rows = SNARK_PATHS[1][2]
+    cases = [(f"main: euclid4, 4 x 2^{log_rows} rows, d = 3", euclid4, 4, 2, log_rows, 3, None),
+             # 256 threads a block hold 4 KiB a slot beside the kernel's 1 KiB
+             # of static shared memory: 11 slots fit the default 48 KiB, 12 only
+             # with the attribute raised (before any wider program, in a new
+             # process)
+             ("a masked constraint v0 v1 + v2 + v3 - v4, 11 slots, d = 3, 5 x 2^16 rows",
+              ConstraintSet([lambda v, r: v[0] * v[1] + v[2] + v[3] - v[4]], 2).composition_fn(), 5, 1, 16, 3, 11),
+             ("a masked constraint v0 v1 + v2 v3 - v4, 12 slots, d = 3, 5 x 2^16 rows",
+              ConstraintSet([lambda v, r: v[0] * v[1] + v[2] * v[3] - v[4]], 2).composition_fn(), 5, 1, 16, 3, 12),
+             (f"a short program at the card's degree limit, d = {limit}, 2 x 2^6 rows",
+              lambda cols, aux: cols[0] * aux[0] - cols[1], 2, 1, 6, limit, None),
+             ("every instruction, d = 1, 3 x 2^12 rows", mixed_composition(1), 3, 2, 12, 1, None),
+             ("every instruction, d = 2, 3 x 2^16 rows", mixed_composition(1), 3, 2, 16, 2, None),
+             ("every instruction, d = 18, 3 x 2^10 rows", mixed_composition(17), 3, 2, 10, 18, None),
+             ("48 columns in a chain, d = 3, 48 x 2^14 rows", chain_composition(48), 48, 1, 14, 3, None),
+             ("a host scalar, d = 3, 2 x 2^8 rows", lambda cols: Fp(9), 2, None, 8, 3, None),
+             ("every instruction, d = 3, 3 x 2 rows", mixed_composition(2), 3, 2, 1, 3, None),
+             ("every instruction, d = 5, 3 x 4 rows", mixed_composition(4), 3, 2, 2, 5, None)]
+    rows = []
+    for label, comp, width, n_aux, log_h, degree, want_slots in cases:
+        data = random_field(rng, (width + 1, 1 << log_h), dev)
+        aux = None if n_aux is None else full_random_field(rng, (n_aux,), dev)
+        r = full_random_field(rng, (4,), dev)[0]
+        program = cmp.trace(comp, width, n_aux)
+        if want_slots is not None and program.slots(degree) != want_slots:
+            raise AssertionError(f"sumcheck_sums case {label!r}: {program.slots(degree)} slots, not {want_slots}")
+
+        def sums(fn):
+            out = torch.zeros((degree, 4), dtype=torch.int64, device=dev)
+            fn(data, program, aux, degree, out)
+            return out
+
+        def plain(data, program, aux, degree, out):
+            cmp.round_sums_plain(data, program.packed, aux, degree, out)
+
+        main_row = label.startswith("main")
+        table_bytes = 16 * (width + 1) * (1 << log_h)
+        row = check_kernel("sumcheck_sums", label, lambda: sums(cmp.round_sums), lambda: sums(plain), table_bytes,
+                           program_ops(program, degree) * (1 << (log_h - 1)),
+                           [[width + 1, 1 << log_h, 4], [degree, 4], ["slots", program.slots(degree)]], main_row)
+        rows.append(row)
+        fold_row = check_kernel("sumcheck_fold", label, lambda: cmp.round_fold(data, r),
+                                lambda: cmp.round_fold_plain(data, r), table_bytes * 3 // 2,
+                                (OPS["mul"] + OPS["add"] + OPS["sub"]) * (width + 1) * (1 << (log_h - 1)),
+                                [[width + 1, 1 << log_h, 4]], main_row)
+        rows.append(fold_row)
+        if main_row:
+            round_ms = time_ms(lambda: (sums(cmp.round_sums), cmp.round_fold(data, r)), 5)
+            bytes_ms = table_bytes * 3 // 2 / PEAK_BYTES_PER_S * 1e3
+            both = {"kernel": "sumcheck_sums + sumcheck_fold", "case": label, "round_ms": round_ms,
+                    "bytes_bound_ms": bytes_ms, "bytes_bound_share": bytes_ms / round_ms,
+                    "sums_bytes_bound_ms": table_bytes / PEAK_BYTES_PER_S * 1e3,
+                    "sums_ops_bound_ms": ops_time_ms(program_ops(program, degree) * (1 << (log_h - 1))),
+                    "instructions": len(program.instrs), "slots": program.slots(degree)}
+            print(json.dumps(both), file=sys.stderr, flush=True)
+            rows.append(both)
+            main.setdefault("sumcheck_sums", row)
+            main.setdefault("sumcheck_fold", fold_row)
+        del data
+        torch.cuda.empty_cache()
+    return rows
+
+
 def kernels_phase(dev) -> dict:
     """Every kernel at the shape the 2^24 prove gives it, at a ragged shape,
     and on the edge values.  Returns {name: timed main-shape row}."""
@@ -1181,6 +1308,7 @@ def kernels_phase(dev) -> dict:
     # and the last element's absorb; each launch against its plain version
     rows.extend(round_scalars_cases(dev, rng, main))
     rows.extend(sumcheck_round_scalars_cases(dev, rng, main))
+    rows.extend(sumcheck_round_cases(dev, rng, main))
     clear_caches()
     torch.cuda.empty_cache()
     emit("kernels", tolerance="0 mismatches (integers)", cases=rows)
@@ -1714,7 +1842,10 @@ def snark_rounds_without_sync(kind: str, trace: Trace, config: ProverConfig, wan
     ``torch.cuda.set_sync_debug_mode("error")``; the copy that ends them
     (with the outputs) and the PCS run after the mode is reset, and the
     proof must be the timed prove's, byte for byte.  The host clock around the rounds is
-    the host's issue time: nothing in them waits for the card."""
+    the host's issue time: nothing in them waits for the card.  Every round
+    must take the fused route (``sumcheck_rounds_fused``), and a second
+    session's rounds under the profiler must run at most 3 operations a
+    round on the card, PyTorch's own included."""
     session = SnarkProverSession(Transcript(), *snark_constraints(kind, trace.width), trace, config=config)
     torch.cuda.synchronize()
     reset_counts()
@@ -1726,15 +1857,27 @@ def snark_rounds_without_sync(kind: str, trace: Trace, config: ProverConfig, wan
     finally:
         torch.cuda.set_sync_debug_mode(0)
     copies_in_rounds = stats.counts().get("d2h_copies", 0)
+    fused = stats.counts().get("sumcheck_rounds_fused", 0)
     counted = {k: v for k, v in launch_counts().items() if v}
     digest = hashlib.sha256(snark_proof_to_bytes(session.finish())).hexdigest()
     if copies_in_rounds or digest != want_sha256:
         raise RuntimeError(f"SNARK sumcheck under the sync check: {copies_in_rounds} copies, proof {digest} "
                            f"against {want_sha256}")
-    return {"sync_debug_mode": "error", "rounds_launched": launched, "d2h_copies_in_rounds": copies_in_rounds,
-            "counted_launches_in_rounds": counted,
-            "counted_launches_per_round": sum(counted.values()) / launched,
-            "host_issue_s_per_round": issue_s / launched, "proof_equals_timed_prove": True}
+    # every operation the card runs in the rounds, the port's kernels and
+    # PyTorch's alike, from the profiler over a second session's rounds
+    session = SnarkProverSession(Transcript(), *snark_constraints(kind, trace.width), trace, config=config)
+    rounds, _, ev = traced_sumcheck_rounds(session)
+    del session
+    device_ops = {e.key: e.count for e in ev if e.key != "sumcheck_round"}  # not the span's own range
+    row = {"sync_debug_mode": "error", "rounds_launched": launched, "d2h_copies_in_rounds": copies_in_rounds,
+           "rounds_fused": fused, "counted_launches_in_rounds": counted,
+           "counted_launches_per_round": sum(counted.values()) / launched,
+           "device_ops_in_rounds": device_ops, "device_ops_per_round": sum(device_ops.values()) / rounds,
+           "host_issue_s_per_round": issue_s / launched, "proof_equals_timed_prove": True}
+    if fused != launched or row["device_ops_per_round"] > 3:
+        raise RuntimeError(f"SNARK sumcheck: {fused} of {launched} rounds fused, "
+                           f"{row['device_ops_per_round']} device operations a round (at most 3): {row}")
+    return row
 
 
 def snark_phase(dev):
@@ -2667,7 +2810,8 @@ def main() -> int:
     OPS.update(counted["ops"])
     spent = {}
     for stem in ("sha256_words", "sha256_leaves", "merkle_levels", "prev_sha256_words", "fold_commit",
-                 "fold", "mul", "kron", "prev_kron", "twiddle_mul3", "zm", "round_scalars", "prev_round_scalars"):
+                 "fold", "mul", "kron", "prev_kron", "twiddle_mul3", "zm", "round_scalars", "prev_round_scalars",
+                 "sumcheck_round"):
         for fn, c in sass_int_ops(_build.library_paths[stem]).items():
             spent[f"{stem}:{fn}"] = {k: c[k] for k in ("alu", "fma", "either", "int", "all")}
     emit("bounds", peak_bytes_per_s=PEAK_BYTES_PER_S, **PEAK,

@@ -18,7 +18,8 @@ What it covers, on one device:
   and batched FRI (``fri``, ``batched_fri``), Merkle commitments
   (``merkle``, ``sha256``, ``sha256_cuda``);
 * the constraint-system SNARK (``system``: ``System.prove_snark`` /
-  ``verify_snark``) over the standalone sumcheck (``sumcheck``);
+  ``verify_snark``) over the standalone sumcheck (``sumcheck``), whose
+  rounds run the composition traced once to a program (``composition``);
 * the rounds' Fiat-Shamir on the card (``device_transcript``) beside the
   host transcript (``transcript``);
 * checkpoint / resume of the three prover sessions (``checkpoint``;
@@ -43,6 +44,7 @@ __all__ = [
     "batched_fri",
     "batched_pcs",
     "checkpoint",
+    "composition",
     "config",
     "device_transcript",
     "field",

@@ -60,6 +60,9 @@ KERNELS = {
     "mlt_sumcheck_round_scalars": ("round_scalars", [_p, _p, _p, _int, _p, _p, _p, _p, _int, _p]),
     "mlt_sumcheck_max_degree": ("round_scalars", [_int]),
     "mlt_open_gather": ("open_gather", [_p, _i64, _i64, _p, _int, _p]),
+    "mlt_sumcheck_sums": ("sumcheck_round", [_p, _i64, _int, _int, _p, _int, _p, _int, _p, _int, _p]),
+    "mlt_sumcheck_fold": ("sumcheck_round", [_p, _p, _i64, _i64, _p, _int, _p]),
+    "mlt_sumcheck_max_slots": ("sumcheck_round", [_int]),
     # the kernels that sha256_leaves / merkle_levels / zm / kron / round_scalars
     # replaced, bound only for previous_routes.py (the smoke script's
     # comparison of routes)

@@ -21,10 +21,14 @@ reduces the sums:
   (:meth:`SumcheckTables.compute_all_rounds`, :class:`DeviceSumcheckRounds`)
   evaluates any composition and calls
   ``device_transcript.sumcheck_round_scalars``, which interpolates through
-  V^-1.  Its rounds copy nothing to the host; one copy after the last round
-  brings the coefficients, the randoms, the folded columns (each column's
-  MLE at the randoms) and the device's digest back, and the host replays the
-  absorbs and challenges and checks them.
+  V^-1.  On one device its round is three launches: the composition, traced
+  once to a program (``composition.trace``), runs in ``sumcheck_sums`` at
+  every extension point, then the round's scalars, then ``sumcheck_fold``
+  (``stats``: ``sumcheck_rounds_fused``).  Its rounds copy nothing to the
+  host; one copy after the last round brings the coefficients, the randoms,
+  the folded columns (each column's MLE at the randoms) and the device's
+  digest back, and the host replays the absorbs and challenges and checks
+  them.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from . import composition as cmp
 from . import device_transcript as dtr
 from . import stats
 from .field import limbs, ops
@@ -227,6 +232,31 @@ class SumcheckTables:
         if self.debug_checks and not ops.is_canonical(self.data):
             raise ValueError("non-canonical field element in folded sumcheck table")
 
+    def fused_program(self, composition: Composition, total_degree: int, n_aux: Optional[int]):
+        """The composition's program (``composition.trace``) if these tables
+        take the fused round - ``composition.round_sums`` and
+        :meth:`fold_fused` in place of :meth:`partial_sums` and :meth:`fold` -,
+        else None: tables that bring their own ``partial_sums`` or ``fold``
+        (a rank's of a sharded prove, whose sums cross ranks) keep them, and
+        so does a program with more slots than a block of the card holds."""
+        cls = type(self)
+        if cls.partial_sums is not SumcheckTables.partial_sums or cls.fold is not SumcheckTables.fold:
+            return None
+        program = cmp.trace(composition, self.data.shape[0] - 1, n_aux)
+        limit = cmp.max_slots(self.data.device)
+        if limit is not None and program.slots(total_degree) > limit:
+            return None
+        self.data = self.data.contiguous()
+        return program
+
+    def fold_fused(self, r: torch.Tensor) -> None:
+        """:meth:`fold` in one ``sumcheck_fold`` launch, for the fused round."""
+        self.data = cmp.round_fold(self.data, r)
+        self.height >>= 1
+        if self.debug_checks and not ops.is_canonical(self.data):
+            raise ValueError("non-canonical field element in folded sumcheck table")
+        stats.bump("sumcheck_rounds_fused")
+
     def compute_all_rounds(self, composition: Composition, composition_degree: int, transcript: Transcript,
                            sum_value: Fp, aux=None):
         """Run all log2(height) rounds of the standalone sumcheck
@@ -247,7 +277,12 @@ class DeviceSumcheckRounds:
     the partial sums, ONE ``sumcheck_round_scalars`` launch (reduce,
     interpolate through V^-1, absorb, draw r into the round's slot of
     ``randoms``, next sum) and the table fold, which reads r there: nothing
-    is copied to or from the host.  ``replay`` makes the one copy (the
+    is copied to or from the host.  Tables that take the fused round
+    (:meth:`SumcheckTables.fused_program`: one device's) run the
+    composition's program in one ``sumcheck_sums`` launch, adding into the
+    round's zeroed row of ``sums``, and fold in one ``sumcheck_fold``
+    launch, so three launches a round; other tables take their own
+    ``partial_sums`` and ``fold``.  ``replay`` makes the one copy (the
     rounds' coefficients and randoms, the device's digest, and after the last
     round the folded columns); the host absorbs the same coefficients and
     draws the challenges into its own transcript, and must reach the same
@@ -278,10 +313,18 @@ class DeviceSumcheckRounds:
         self.state = dtr.state_from_host(transcript, device)
         self.prev = limbs.pack_int(Fp(previous_sum).v, device=device)
         self.vinv = vandermonde_inv(total_degree + 1, device)
-        self.aux = None if aux is None else [ops.FA(a) for a in limbs.pack_ints(list(aux), device=device)]
+        self.aux_table = None if aux is None else limbs.pack_ints(list(aux), device=device)
+        self.aux = None if aux is None else [ops.FA(a) for a in self.aux_table]
+        self.program = tables.fused_program(composition, total_degree,
+                                            None if aux is None else len(self.aux_table))
+        if self.program is not None:
+            self.program.on(device)  # its one copy to the device, made before the rounds
         self.coeffs = torch.empty((self.n_rounds, total_degree, 4), dtype=torch.int32, device=device)
         self.randoms = torch.empty((self.n_rounds, 4), dtype=torch.int32, device=device)
         self.digest = torch.empty(8, dtype=torch.int32, device=device)
+        # the fused round's sums, a zeroed row a round (the kernel adds into it)
+        self.sums = None if self.program is None else \
+            torch.zeros((self.n_rounds, total_degree, 4), dtype=torch.int64, device=device)
         self.k = rounds_done  # rounds launched
         self.replayed = rounds_done  # rounds the host transcript has absorbed
         self.outputs: Optional[List[Fp]] = None  # the columns at the randoms, after the last round
@@ -293,10 +336,17 @@ class DeviceSumcheckRounds:
         done = 0
         while self.k < end:
             with span("sumcheck_round"):
-                sums = self.tables.partial_sums(self.composition, self.total_degree, self.aux)
+                if self.program is None:
+                    sums = self.tables.partial_sums(self.composition, self.total_degree, self.aux)
+                else:
+                    sums = self.sums[self.k]
+                    cmp.round_sums(self.tables.data, self.program, self.aux_table, self.total_degree, sums)
                 dtr.sumcheck_round_scalars(self.state, self.prev, self.digest, sums, self.vinv,
                                            self.coeffs[self.k], self.randoms[self.k])
-                self.tables.fold(self.randoms[self.k])
+                if self.program is None:
+                    self.tables.fold(self.randoms[self.k])
+                else:
+                    self.tables.fold_fused(self.randoms[self.k])
             self.k += 1
             done += 1
         return done

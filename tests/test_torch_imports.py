@@ -88,12 +88,14 @@ def test_every_kernel_source_and_binding_is_present():
     assert {
         "mul", "addsub", "sha256_words", "sha256_leaves", "merkle_levels", "butterfly", "butterfly2",
         "twiddle_mul3", "kron", "zm", "fold", "fold_commit", "round_scalars", "open_gather",
+        "sumcheck_round",
         # the replaced kernels, kept for the smoke script's comparison of
         # routes, and the probe kernels whose instructions it counts
         "prev_sha256_words", "prev_zm", "prev_kron", "prev_round_scalars", "opcount",
     } == set(_build.SOURCES)
     for symbol in ("mlt_sha256_messages", "mlt_sha256_leaves", "mlt_merkle_levels", "mlt_zm_tiles",
-                   "mlt_kron_tiles", "mlt_round_scalars", "mlt_sumcheck_round_scalars", "mlt_open_gather"):
+                   "mlt_kron_tiles", "mlt_round_scalars", "mlt_sumcheck_round_scalars", "mlt_open_gather",
+                   "mlt_sumcheck_sums", "mlt_sumcheck_fold", "mlt_sumcheck_max_slots"):
         assert symbol in _build.KERNELS, symbol
 
 

@@ -30,6 +30,7 @@ from multilinear_tpu.serialize import snark_proof_from_bytes as j_from_bytes
 from multilinear_tpu.serialize import snark_proof_to_bytes as j_to_bytes
 from multilinear_tpu.transcript import Transcript as JTranscript
 
+from multilinear_tpu_torch import composition as cmp
 from multilinear_tpu_torch import device_transcript as dtr
 from multilinear_tpu_torch import stats
 from multilinear_tpu_torch import sumcheck as psc
@@ -230,6 +231,121 @@ def test_partial_sums_match_jax_host(name):
     got = pt.partial_sums(pcomp, degree + 1, paux)
     assert got.dtype == torch.int64 and got.shape == (degree + 1, 4)
     assert [ops.limb_sums_to_int(lanes) for lanes in got.tolist()] == [int(v) % P for v in want]
+
+
+# ---------------------------------------------------------------------------
+# the composition traced to a program, and the fused round
+# ---------------------------------------------------------------------------
+
+
+def _trace_tables(width: int, log_n: int, seed: int) -> psc.SumcheckTables:
+    flat = [v for c in _random_columns(width, log_n, seed) for v in c]
+    row_ch = [int.from_bytes(bytes([9 + i]) * 16, "little") % P for i in range(log_n)]
+    return psc.SumcheckTables.for_trace([Fp(v) for v in row_ch], limbs.pack_ints(flat, shape=(width, 1 << log_n)))
+
+
+def _aux_table(n: int) -> torch.Tensor:
+    return limbs.pack_ints([int.from_bytes(bytes([5 + i]) * 16, "little") % P for i in range(n)])
+
+
+@pytest.mark.parametrize("name", ["trivial", "zero", "pythagorean", "randoms", "cubic", "constant"])
+def test_traced_program_equals_the_eager_composition(name):
+    """The composition traced once, run by the plain version of
+    ``sumcheck_sums`` over random tables, gives the eager composition's
+    unreduced sums (``pythagorean`` is the benchmark's euclid4 set;
+    ``constant`` returns a host scalar)."""
+    if name == "constant":
+        comp, degree, width, aux = (lambda cols: Fp(9)), 1, 2, None
+    else:
+        cs, degree, width, randoms = _constraint_sets(Fp)[name]
+        comp = psys.ConstraintSet(cs, degree).composition_fn()
+        aux = _aux_table(randoms + len(cs))
+    tables = _trace_tables(width, 5, 199 + width)
+    program = cmp.trace(comp, width, None if aux is None else len(aux))
+    assert program is cmp.trace(comp, width, None if aux is None else len(aux))  # traced once
+    got = torch.zeros((degree + 1, 4), dtype=torch.int64)
+    cmp.round_sums(tables.data, program, aux, degree + 1, got)
+    want = psc._partial_sums_kernel(tables.data, degree + 1, comp, None if aux is None else [ops.FA(a) for a in aux])
+    assert torch.equal(got, want)
+
+
+def _every_instruction(e: int):
+    """A composition of degree e in column 0 that reads columns, aux
+    scalars, int and Fp constants through +, -, * and unary -."""
+
+    def comp(cols, aux):
+        acc = cols[0]
+        for _ in range(e - 1):
+            acc = acc * cols[0]
+        return (acc - 3 * cols[1]) * aux[0] + (-cols[2]) * Fp(K) + aux[1] * aux[0] - 7 + (5 - cols[1])
+
+    return comp
+
+
+@pytest.mark.parametrize("log_n,total_degree", [(4, 1), (6, 2), (10, 3), (5, 18)])
+def test_fused_round_equals_the_eager_round(log_n, total_degree):
+    """The fused round's plain versions - the program's sums, then the fold -
+    give ``_partial_sums_kernel`` and ``_fold_kernel``'s bytes; the
+    18-degree case's points take five passes of the kernel's four."""
+    comp = _every_instruction(max(total_degree - 1, 1))
+    tables, aux = _trace_tables(3, log_n, 300 + log_n), _aux_table(2)
+    program = cmp.trace(comp, 3, 2)
+    got = torch.zeros((total_degree, 4), dtype=torch.int64)
+    cmp.round_sums(tables.data, program, aux, total_degree, got)
+    assert torch.equal(got, psc._partial_sums_kernel(tables.data, total_degree, comp, [ops.FA(a) for a in aux]))
+    r = _aux_table(3)[2]
+    assert torch.equal(cmp.round_fold(tables.data, r), psc._fold_kernel(tables.data, r))
+
+
+def test_program_slots_are_reused():
+    """A temporary's slot is free after its last read: x^17 - x holds one
+    temporary beside its column, whatever its length."""
+    program = cmp.trace(_power_constraint(18), 1, 0)
+    assert len(program.instrs) == 17 and program.n_temps == 1 and program.slots(18) == 3
+
+
+@pytest.mark.parametrize("expr,slots", [(lambda v, r: v[0] * v[1] + v[2] + v[3] - v[4], 11),
+                                        (lambda v, r: v[0] * v[1] + v[2] * v[3] - v[4], 12)])
+def test_program_slots_either_side_of_the_default_shared_memory(expr, slots):
+    """A masked degree-2 constraint over 5 columns holds 11 or 12 slots at
+    d = 3: at 256 threads 44 or 48 KiB of dynamic shared memory beside the
+    kernel's 1 KiB of static, either side of the default 48 KiB (the card's
+    smoke runs both); the plain round still equals the eager one."""
+    comp = psys.ConstraintSet([expr], 2).composition_fn()
+    program = cmp.trace(comp, 5, 1)
+    assert program.slots(3) == slots
+    tables, aux = _trace_tables(5, 4, 500 + slots), _aux_table(1)
+    got = torch.zeros((3, 4), dtype=torch.int64)
+    cmp.round_sums(tables.data, program, aux, 3, got)
+    assert torch.equal(got, psc._partial_sums_kernel(tables.data, 3, comp, [ops.FA(a) for a in aux]))
+
+
+@pytest.mark.parametrize("expr", ["power", "division", "tensor", "returns None"])
+def test_a_composition_outside_the_contract_raises(expr):
+    bad = {"power": lambda v, r: v[0] ** 2, "division": lambda v, r: v[0] / 2, "tensor": lambda v, r: v[0].a,
+           "returns None": lambda v, r: None}[expr]
+    with pytest.raises(TypeError):
+        cmp.trace(lambda cols, aux: bad(cols, aux), 1, 0)
+
+
+@pytest.mark.parametrize("name,slot_limit", [("pythagorean", None), ("cubic", None), ("pythagorean", 3)])
+def test_fused_rounds_are_counted(monkeypatch, name, slot_limit):
+    """``sumcheck_rounds_fused`` reads one a round of one device's tables;
+    a program with more slots than the device's limit takes the eager
+    round, to the same polynomials."""
+    _, _, width, _ = _constraint_sets(Fp)[name]
+    log_n = 4
+    pt = Transcript()
+    _, pprover = _systems(name, _rows(name, width, log_n), width, (JTranscript(), pt))
+    monkeypatch.setattr(cmp, "max_slots", lambda device: slot_limit)
+    stats.reset()
+    pols, _ = pprover.compute_sumcheck_polynomials(pt, pprover.build_tables(), Fp(0))
+    assert stats.counts().get("sumcheck_rounds_fused", 0) == (log_n if slot_limit is None else 0)
+    qt = Transcript()
+    _, qprover = _systems(name, _rows(name, width, log_n), width, (JTranscript(), qt))
+    monkeypatch.setattr(cmp, "max_slots", lambda device: 0)  # the eager round
+    want, _ = qprover.compute_sumcheck_polynomials(qt, qprover.build_tables(), Fp(0))
+    assert [[c.v for c in p.nonzero_coeffs] for p in pols] == [[c.v for c in p.nonzero_coeffs] for p in want]
 
 
 # ---------------------------------------------------------------------------
