@@ -55,7 +55,7 @@ import time
 import numpy as np
 import torch
 
-from multilinear_tpu_torch import _build, fri, merkle, mle, ntt, previous_routes, sha256, sha256_cuda, stats
+from multilinear_tpu_torch import _build, fri, merkle, mle, ntt, sha256, sha256_cuda, stats
 from multilinear_tpu_torch import composition as cmp
 from multilinear_tpu_torch import device_transcript as dtr
 from multilinear_tpu_torch.batched_pcs import BatchedPCSClaim, BatchedPCSProof, BatchedPCSProverSession
@@ -219,9 +219,9 @@ KERNELS = {
         "replaces": "multilinear_tpu/merkle.py:230",
     },
     # a constraint-sumcheck round's sums and fold: jnp code inside the TPU's
-    # round program (`_partial_sums_kernel`, `_fold_kernel` in
+    # round program (the partial sums and the table fold of
     # `_sc_round_body`), not TPU kernels; here the composition runs as a
-    # traced program in one launch, and the fold is another
+    # traced program in one launch, and the fold, every table's, is another
     "sumcheck_sums": {
         "source": "multilinear_tpu_torch/csrc/sumcheck_round.cu",
         "replaces": "multilinear_tpu/sumcheck.py:163",
@@ -558,10 +558,6 @@ def round_bound(n_bytes: float, blocks: int, other_ops) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def one_clock_ms(instructions: float) -> float:
-    return instructions / (PEAK["max_sm_mhz"] * 1e6) * 1e3
-
-
 # A round with a root, the case of every PCS round: its bytes (the state
 # read and written, the sums, the root, prev in, three scalars and two
 # coefficients out, the digest) and its field operations besides the two
@@ -594,8 +590,8 @@ def round_scalars_inputs(dev, rng, case: int):
 
 
 def launch_round_scalars(fn, dev, state, scal, sums, root, elem, mode):
-    """One launch of ``fn`` (the kernel's wrapper, its plain version or a
-    kept kernel) on copies of the inputs; returns every output."""
+    """One launch of ``fn`` (the kernel's wrapper or its plain version) on
+    copies of the inputs; returns every output."""
     state, scal = state.clone(), scal.clone()
     digest = torch.zeros(8, dtype=torch.int32, device=dev)
     coeffs = torch.zeros((2, 4), dtype=torch.int32, device=dev)
@@ -612,9 +608,7 @@ def round_scalars_cases(dev, rng, main: dict) -> list:
     case of every PCS round, with its device time from a replayed CUDA graph
     of back-to-back launches.  Its bound is ``round_bound``: the rounds of
     the two or three compressions as one chain at one instruction a clock,
-    plus the rest at the card's integer rate; ``one_thread_bound_ms`` is the bound of a
-    one-thread implementation (the kept kernel's instructions at one a
-    clock), which the one-thread kernel was held to."""
+    plus the rest at the card's integer rate."""
     rows = []
     bad, worst = 0, 0
     for case in range(256):
@@ -634,7 +628,6 @@ def round_scalars_cases(dev, rng, main: dict) -> list:
     coeffs = torch.empty((2, 4), dtype=torch.int32, device=dev)
     blocks = transcript_blocks(1, 32 + 32)
     bound_ms, bound_by = round_bound(ROUND_BYTES, blocks, round_other_ops())
-    one_thread = kernel_sass("prev_round_scalars", "round_scalars_one_thread_kernel")["all"]
     row = {"kernel": "round_scalars", "case": "main: a round with a root",
            "shapes": [[dtr.STATE_WORDS], [2, 4], [8]], "mismatches": 0, "max_abs_err": worst,
            "kernel_ms": graph_ms(lambda: dtr.round_scalars(state, scal, digest, sums=sums, root=root, coeffs=coeffs),
@@ -642,26 +635,12 @@ def round_scalars_cases(dev, rng, main: dict) -> list:
            "plain_ms": time_ms(lambda: dtr.round_scalars_plain(state, scal, digest, sums=sums, root=root,
                                                                 coeffs=coeffs), 5),
            "bound_ms": bound_ms, "bound_by": bound_by, "sha_blocks": blocks,
-           "instructions": kernel_sass("round_scalars", "round_scalars_kernel")["all"],
-           "one_thread_bound_ms": one_clock_ms(one_thread), "one_thread_instructions": one_thread}
+           "instructions": kernel_sass("round_scalars", "round_scalars_kernel")["all"]}
     row["bound_share"] = bound_ms / row["kernel_ms"]
-    row["one_thread_bound_share"] = row["one_thread_bound_ms"] / row["kernel_ms"]
     print(json.dumps(row), file=sys.stderr, flush=True)
     main.setdefault("round_scalars", row)
     rows.append(row)
     return rows
-
-
-def sumcheck_round_instructions(degree: int, fill: int) -> float:
-    """The bound of a one-thread implementation of a standalone round (the
-    one the one-thread kernel was held to), in instructions at one a clock:
-    the d(d+1) multiplies and d^2 additions of rows 1..d of the V^-1 product
-    (row 0 is e0: c0 = s0 needs no work), the d multiplies and d additions
-    of Horner, s0 = prev - s1, and the SHA-256 compressions of the absorbed
-    coefficients and of the digest, at the counts of the `bounds` phase."""
-    blocks = transcript_blocks(fill, 16 * degree)
-    return float((degree * (degree + 1) + degree) * OPS["mul"].sum() + (degree * degree + degree) * OPS["add"].sum()
-                 + OPS["sub"].sum() + blocks * OPS["sha_block"].sum())
 
 
 def sumcheck_round_bound(degree: int, fill: int) -> tuple:
@@ -764,9 +743,8 @@ def sumcheck_round_scalars_cases(dev, rng, main: dict) -> list:
     ``RANDOM_MATRIX_DEGREES``, lane sums to 2^63 - 1 and prev at 0 and
     p - 1, then at the card's degree limit; the timed rows are P4's round
     (degree 3, the main row) and ``TIMED_DEGREES``, each with its device
-    time from a replayed CUDA graph of back-to-back launches, its bound
-    ``sumcheck_round_bound`` and the one-thread bound of earlier PRs
-    (``sumcheck_round_instructions`` at one a clock)."""
+    time from a replayed CUDA graph of back-to-back launches and its bound
+    ``sumcheck_round_bound``."""
     bad, worst, n = 0, 0, 0
     for degree, states in ([(d, 64) for d in range(2, 9)] + [(d, 16) for d in HIGH_DEGREES]
                            + list(RANDOM_MATRIX_DEGREES)):
@@ -803,10 +781,8 @@ def sumcheck_round_scalars_cases(dev, rng, main: dict) -> list:
                                      copies=100 if degree <= 64 else 10),
                "plain_ms": time_ms(lambda: dtr.sumcheck_round_scalars_plain(state, prev, digest, sums, vinv, coeffs,
                                                                             r), 5 if degree <= 64 else 1),
-               "bound_ms": bound_ms, "bound_by": bound_by, "sha_blocks": transcript_blocks(1, 16 * degree),
-               "one_thread_bound_ms": one_clock_ms(sumcheck_round_instructions(degree, 1))}
+               "bound_ms": bound_ms, "bound_by": bound_by, "sha_blocks": transcript_blocks(1, 16 * degree)}
         row["bound_share"] = bound_ms / row["kernel_ms"]
-        row["one_thread_bound_share"] = row["one_thread_bound_ms"] / row["kernel_ms"]
         print(json.dumps(row), file=sys.stderr, flush=True)
         main.setdefault("sumcheck_round_scalars" if degree == 3 else f"sumcheck_round_scalars/degree {degree}", row)
         rows.append(row)
@@ -861,7 +837,10 @@ def sumcheck_round_cases(dev, rng, main: dict) -> list:
     of 11 and 12 slots (either side of the default 48 KiB of shared memory at
     256 threads), a composition of every instruction at total
     degrees 1, 2, 18, 48 columns (fewer threads a block, more than 48 KiB of
-    shared memory), a host scalar, and tables of 2 and 4 rows."""
+    shared memory), a host scalar, and tables of 2 and 4 rows; the
+    compositions of every instruction and the host scalar also by the route
+    of a program wider than a block; and the fold of the PCS's two-row
+    tables at their first round, timed with the bound of their bytes."""
     euclid4 = ConstraintSet(*SNARK_CONSTRAINTS["pythagorean"]).composition_fn()
     limit = dtr.sumcheck_degree_limit(dev)
     log_rows = SNARK_PATHS[1][2]
@@ -897,12 +876,10 @@ def sumcheck_round_cases(dev, rng, main: dict) -> list:
             fn(data, program, aux, degree, out)
             return out
 
-        def plain(data, program, aux, degree, out):
-            cmp.round_sums_plain(data, program.packed, aux, degree, out)
-
         main_row = label.startswith("main")
         table_bytes = 16 * (width + 1) * (1 << log_h)
-        row = check_kernel("sumcheck_sums", label, lambda: sums(cmp.round_sums), lambda: sums(plain), table_bytes,
+        row = check_kernel("sumcheck_sums", label, lambda: sums(cmp.round_sums), lambda: sums(cmp.round_sums_plain),
+                           table_bytes,
                            program_ops(program, degree) * (1 << (log_h - 1)),
                            [[width + 1, 1 << log_h, 4], [degree, 4], ["slots", program.slots(degree)]], main_row)
         rows.append(row)
@@ -911,6 +888,18 @@ def sumcheck_round_cases(dev, rng, main: dict) -> list:
                                 (OPS["mul"] + OPS["add"] + OPS["sub"]) * (width + 1) * (1 << (log_h - 1)),
                                 [[width + 1, 1 << log_h, 4]], main_row)
         rows.append(fold_row)
+        if label.startswith(("every instruction", "a host scalar")):
+            # the route of a program wider than a block: the plain version's
+            # loop over the card's add, sub and mul kernels (unary minus as
+            # 0 - x, constants read as views of the packed program)
+            real = cmp.max_slots
+            cmp.max_slots = lambda device: 0
+            try:
+                rows.append(check_kernel("sumcheck_sums", f"wider than a block (add, sub, mul kernels): {label}",
+                                         lambda: sums(cmp.round_sums), lambda: sums(cmp.round_sums_plain), 0, 0,
+                                         [[width + 1, 1 << log_h, 4], [degree, 4]], False))
+            finally:
+                cmp.max_slots = real
         if main_row:
             round_ms = time_ms(lambda: (sums(cmp.round_sums), cmp.round_fold(data, r)), 5)
             bytes_ms = table_bytes * 3 // 2 / PEAK_BYTES_PER_S * 1e3
@@ -925,7 +914,34 @@ def sumcheck_round_cases(dev, rng, main: dict) -> list:
             main.setdefault("sumcheck_fold", fold_row)
         del data
         torch.cuda.empty_cache()
+    # the PCS's tables (w = 1) at their first round: the 2^24 PCS's and the
+    # 10 x 2^22 batched PCS's random combination of its polynomials
+    for label, log_h in ((f"pcs 2^{PCS_LOG_SIZES[-1]}, first round", PCS_LOG_SIZES[-1]),
+                         (f"batched pcs {BATCH_POLYS} x 2^{BATCHED_LOG_SIZES[-1]}, first round",
+                          BATCHED_LOG_SIZES[-1])):
+        data = random_field(rng, (2, 1 << log_h), dev)
+        r = full_random_field(rng, (4,), dev)[0]
+        row = check_kernel("sumcheck_fold", label, lambda: cmp.round_fold(data, r),
+                           lambda: cmp.round_fold_plain(data, r), 16 * 2 * (1 << log_h) * 3 // 2,
+                           (OPS["mul"] + OPS["add"] + OPS["sub"]) * 2 * (1 << (log_h - 1)), [[2, 1 << log_h, 4]],
+                           True)
+        rows.append(row)
+        main[f"sumcheck_fold/{label}"] = row
+        del data
+        torch.cuda.empty_cache()
     return rows
+
+
+def kron_parts(mode: str, a: torch.Tensor, b: torch.Tensor, out: torch.Tensor) -> None:
+    """``csrc/kron.cu``'s kernel less one part, on contiguous (m, 4), (n, 4)
+    and (m n, 4) CUDA tensors with n <= 256: ``mode`` "stores" writes b[j]
+    to every out[i n + j] and multiplies nothing; "multiplies" computes
+    every product and stores none (``out`` is left as it was)."""
+    m, n = a.shape[0], b.shape[0]
+    if any(not t.is_contiguous() for t in (a, b, out)) or n > 256 or out.shape != (m * n, 4):
+        raise ValueError("kron_parts: contiguous (m, 4), (n, 4), (m n, 4) tensors and n <= 256 expected")
+    cuda_ops._launch("kron_parts", "mlt_kron_parts", a.device, {"stores": 1, "multiplies": 2}[mode], a.data_ptr(),
+                     b.data_ptr(), out.data_ptr(), m, n)
 
 
 def kernels_phase(dev) -> dict:
@@ -1095,7 +1111,21 @@ def kernels_phase(dev) -> dict:
     a = limbs.pack_ints(EDGES, device=dev)
     run("kron_mul", "edge pairs", lambda: cuda_ops.kron_mul(a, a), lambda: cuda_ops.kron_mul_plain(a, a),
         shapes=[[16, 4]] * 2)
-    del a, b, packed
+    # what binds the tensor product, on the main row: the kernel with its
+    # multiplies taken out (its stores alone) and with its stores taken out
+    # (its multiplies alone), beside a plain fill of the same output
+    a, b = random_field(rng, (1 << 16,), dev), random_field(rng, (1 << 8,), dev)
+    out = torch.empty((1 << 24, 4), dtype=torch.int32, device=dev)
+    kron_parts("stores", a, b, out)
+    if not torch.equal(out.view(-1, 1 << 8, 4)[-1], b):
+        raise RuntimeError("kron_parts: the stores-alone kernel did not store b")
+    main["kron_mul"]["parts"] = {
+        "fill_ms": time_ms(lambda: out.zero_(), 20),
+        "stores_alone_ms": time_ms(lambda: kron_parts("stores", a, b, out), 20),
+        "multiplies_alone_ms": time_ms(lambda: kron_parts("multiplies", a, b, out), 20),
+        "whole_ms": time_ms(lambda: cuda_ops.kron_mul(a, b, out=out), 20)}
+    print(json.dumps({"kernel": "kron_mul", "parts": main["kron_mul"]["parts"]}), file=sys.stderr, flush=True)
+    del a, b, packed, out
 
     # zm_butterfly: both directions at every size up to one past the tiles
     # (2^1..2^13 and 2^14; each also with the tile its size does not take),
@@ -1320,337 +1350,6 @@ def kernels_phase(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# each new kernel beside the route that stood in for it
-# ---------------------------------------------------------------------------
-
-
-# the standalone rounds the routes phase times: P4's, 17, the degree path's
-# (x^17 - x: total degree 18, read by the degree phase) and one well past the
-# one-thread kernel's cap of earlier PRs
-ROUTE_DEGREES = (3, 17, 18, 64)
-
-
-def round_kernel_routes(dev) -> list:
-    """The round kernels beside the one-thread kernels they replaced
-    (``previous_routes``), at the main round of ``round_scalars`` (a root, a
-    fill of 1 + 64 bytes) and standalone rounds of ``ROUTE_DEGREES``: the
-    outputs held equal, then each timed three times as a replayed CUDA graph
-    of 100 launches, the routes in turns (old, new, new, old, old, new)."""
-    rng = np.random.default_rng(11)
-    rows = []
-
-    def timed(routes: dict, label: str, extra: dict) -> None:
-        ms = {name: [] for name in routes}
-        for rep in range(3):
-            for name in (list(routes) if rep % 2 == 0 else list(routes)[::-1]):
-                ms[name].append(graph_ms(routes[name], copies=100))
-        old, new = ms["old"], ms["new"]
-        row = {"kernel": label, **extra, "old_route": "one thread (prev_round_scalars.cu)", "old_ms": old,
-               "new_route": "round_scalars.cu", "new_ms": new,
-               "new_over_old": float(np.median(new) / np.median(old)),
-               "spread_ms": max(max(old) - min(old), max(new) - min(new))}
-        rows.append(row)
-        print(json.dumps(row), file=sys.stderr, flush=True)
-
-    state, scal, sums, root, elem = round_scalars_inputs(dev, rng, 1)
-    for mode in ("round", "last element"):
-        res = compare(launch_round_scalars(previous_routes.round_scalars_one_thread, dev, state, scal, sums, root,
-                                           elem, mode),
-                      launch_round_scalars(dtr.round_scalars, dev, state, scal, sums, root, elem, mode))
-        if res["mismatches"]:
-            raise RuntimeError(f"round_scalars disagrees with the kernel it replaced ({mode}): {res}")
-    digest = torch.empty(8, dtype=torch.int32, device=dev)
-    coeffs = torch.empty((2, 4), dtype=torch.int32, device=dev)
-    timed({"old": lambda: previous_routes.round_scalars_one_thread(state, scal, digest, sums=sums, root=root,
-                                                                    coeffs=coeffs),
-           "new": lambda: dtr.round_scalars(state, scal, digest, sums=sums, root=root, coeffs=coeffs)},
-          "round_scalars", {"case": "main: a round with a root"})
-    kernels = {"old": previous_routes.sumcheck_round_scalars_one_thread, "new": dtr.sumcheck_round_scalars}
-    for degree in ROUTE_DEGREES:
-        state, prev, sums, vinv = sumcheck_inputs(dev, rng, 1, degree)
-        res = compare(*(launch_sumcheck_round(fn, dev, state, prev, sums, vinv) for fn in kernels.values()))
-        if res["mismatches"]:
-            raise RuntimeError(f"sumcheck_round_scalars at degree {degree} disagrees with the kernel it replaced: {res}")
-        digest = torch.empty(8, dtype=torch.int32, device=dev)
-        coeffs = torch.empty((degree, 4), dtype=torch.int32, device=dev)
-        r = torch.empty(4, dtype=torch.int32, device=dev)
-        timed({name: (lambda fn=fn: fn(state, prev, digest, sums, vinv, coeffs, r)) for name, fn in kernels.items()},
-              "sumcheck_round_scalars", {"case": f"a degree-{degree} round", "degree": degree})
-    return rows
-
-
-def routes_phase(dev, log_n: int = 24, log_b: int = BATCHED_LOG_SIZES[-1]) -> list:
-    """Time, at the shapes of the 2^log_n prove, the route through each
-    later kernel beside the route that stood in for it before: six composed
-    here from the first four kernels (``mul``, ``sub``, ``butterfly``,
-    ``fold_commit_leaves``), and the redesigned Merkle hashing and Moebius
-    transform beside the kernels they replaced (``previous_routes``); then
-    the batched encode as one batch beside a loop over its polynomials, and
-    the round kernels beside their one-thread forms (``round_kernel_routes``,
-    whose rows it returns).
-    ``bound_ms`` is the bytes the new route has to move over the card's
-    memory rate."""
-    rng = np.random.default_rng(7)
-    log_m = log_n + 1
-    n, m = 1 << log_n, 1 << log_m
-    elem = 16
-    rows = []
-
-    def row(kernel, old_route, old_fn, new_route, new_fn, fused_bytes, same=False):
-        if same:  # the two routes compute the same function: hold them to it
-            res = compare(old_fn(), new_fn())
-            if res["mismatches"]:
-                raise RuntimeError(f"routes of {kernel} disagree: {old_route} / {new_route}: {res}")
-        old_ms, new_ms = time_ms(old_fn, 2), time_ms(new_fn, 2)
-        rows.append({"kernel": kernel, "old_route": old_route, "old_ms": old_ms,
-                     "new_route": new_route, "new_ms": new_ms,
-                     "bound_ms": fused_bytes / PEAK_BYTES_PER_S * 1e3, "gained_ms": old_ms - new_ms})
-        torch.cuda.empty_cache()
-
-    x = random_field(rng, (n,), dev)
-
-    def per_bit_sub():
-        y = x.clone()
-        for i in range(log_n):
-            w = y.view(n >> (i + 1), 2, 1 << i, 4)
-            cuda_ops.sub(w[:, 1], w[:, 0], out=w[:, 1])
-        return y
-
-    passes = len(cuda_ops.zm_passes(log_n))
-    row("zm_butterfly", "one sub launch per index bit", per_bit_sub,
-        f"mle.to_coeffs: {passes} zm_butterfly passes", lambda: mle.to_coeffs(x), 2 * n * elem)
-    subs = mle.delta_subtables([Fp(int.from_bytes(rng.bytes(16), "little")) for _ in range(log_n)], dev)
-
-    def broadcast_mul():
-        d = subs[0]
-        for t in subs[1:]:
-            d = ops.mul(d.reshape(-1, 1, 4), t.reshape(1, -1, 4)).reshape(-1, 4)
-        return d
-
-    row("kron_mul", "broadcast operands through mul", broadcast_mul,
-        "mle.combine_subtables: kron_mul", lambda: mle.combine_subtables(subs), n * elem)
-    # the redesigned tensor product beside the kernel it replaced, at the
-    # last products of the 2^log_n and the batched delta tables, written into
-    # the packed table's delta row as the prove does
-    for label, n_b in ((f"2^{log_n - 8} x 2^8", 1 << 8), (f"2^16 x 2^{log_b - 16}", 1 << (log_b - 16))):
-        a_k = random_field(rng, ((n if n_b == 256 else 1 << log_b) // n_b,), dev)
-        b_k = random_field(rng, (n_b,), dev)
-        packed = torch.empty((2, a_k.shape[0] * n_b, 4), dtype=torch.int32, device=dev)
-        res = compare(previous_routes.kron_mul(a_k, b_k, torch.empty_like(packed[1])),
-                      cuda_ops.kron_mul(a_k, b_k, out=packed[1]))
-        if res["mismatches"]:
-            raise RuntimeError(f"kron_mul disagrees with the kernel it replaced at {label}: {res}")
-        row("kron_mul", f"{label} into out: one thread per element (prev_kron.cu)",
-            lambda: previous_routes.kron_mul(a_k, b_k, packed[1]),
-            "persistent row tiles, b in registers (kron.cu)", lambda: cuda_ops.kron_mul(a_k, b_k, out=packed[1]),
-            16 * (packed[1].numel() // 4 + a_k.shape[0] + n_b))
-        del a_k, b_k, packed
-    # what binds the tensor product: the same kernel with its multiplies taken
-    # out (the stores alone) and with its stores taken out (the multiplies
-    # alone), beside a plain fill of the same output
-    a_k, b_k = random_field(rng, (n >> 8,), dev), random_field(rng, (1 << 8,), dev)
-    out_k = torch.empty((n, 4), dtype=torch.int32, device=dev)
-    previous_routes.kron_parts("stores", a_k, b_k, out_k)
-    if not torch.equal(out_k.view(-1, 1 << 8, 4)[-1], b_k):
-        raise RuntimeError("kron_parts: the stores-alone kernel did not store b")
-    kron_parts = {"shape": [n >> 8, 1 << 8], "bound_ms": 16 * n / PEAK_BYTES_PER_S * 1e3,
-                  "fill_ms": time_ms(lambda: out_k.zero_(), 20),
-                  "stores_alone_ms": time_ms(lambda: previous_routes.kron_parts("stores", a_k, b_k, out_k), 20),
-                  "multiplies_alone_ms": time_ms(
-                      lambda: previous_routes.kron_parts("multiplies", a_k, b_k, out_k), 20),
-                  "whole_ms": time_ms(lambda: cuda_ops.kron_mul(a_k, b_k, out=out_k), 20)}
-    del a_k, b_k, out_k, x, subs
-
-    a = (log_m + 1) // 2
-    A, B = 1 << a, 1 << (log_m - a)
-    gen_v = pow2_generator(log_m).v
-    pows = ntt._pow_table(gen_v, log_m - 1, dev)
-    powsA, powsB = pows[::B][: A // 2], pows[::A][: B // 2]
-    code = random_field(rng, (m,), dev)
-
-    def single_stages(x, pw, log_rows):
-        half = x.shape[0] // 2
-        iota = torch.arange(half, dtype=torch.int64, device=dev)
-        for t in range(log_rows):
-            tw = pw[cuda_ops.stage_exp(t, iota, half)]
-            x = cuda_ops.butterfly(x[:half], x[half:], tw).reshape(x.shape)
-        return x
-
-    row("butterfly2 + butterfly_notw", "one butterfly launch and one twiddle gather per stage",
-        lambda: (single_stages(code.view(A, B, 4), powsA, a),
-                 single_stages(code.view(B, A, 4), powsB, log_m - a)),
-        "ntt._pease_rows: two stages per launch, twiddles indexed in the kernel",
-        lambda: (ntt._pease_rows(code.view(A, B, 4), powsA, a),
-                 ntt._pease_rows(code.view(B, A, 4), powsB, log_m - a)),
-        ((log_m + 1) // 2) * 2 * m * elem)
-    Tc, Tf = ntt._twiddle_factors(gen_v, log_m, dev)
-    S = Tf.shape[0]
-    Fr = code.view(A // S, S, B, 4)
-    row("twiddle_mul3", "two mul passes over Tc and Tf",
-        lambda: ops.mul(ops.mul(Fr, Tc.reshape(A // S, 1, B, 4)), Tf.reshape(1, S, B, 4)),
-        "one twiddle_mul3 pass", lambda: cuda_ops.twiddle_mul3(code.view(A, B, 4), Tc, Tf),
-        2 * m * elem + (Tc.numel() + Tf.numel()) * 4)
-    del Fr, Tc, Tf, pows, powsA, powsB
-
-    # the first fold of the batched prove: fold alone, then an ordinary commit
-    # of the pair leaves, beside the fused fold + leaf hash and the same
-    # upper levels
-    half_code = code[: m // 4]
-    inv = inv_gen_pows(log_m - 2, dev)
-    rh = limbs.pack_int(int.from_bytes(rng.bytes(16), "little") % P, device=dev)
-
-    def fused():
-        nxt, leaf = cuda_ops.fold_commit_leaves(half_code, inv, 1, rh)
-        return nxt, merkle.tree_levels(leaf)
-
-    def fold_then_commit():
-        nxt = cuda_ops.fold_codeword(half_code, inv, 1, rh)
-        return nxt, merkle.MerkleTree.commit(fri._pair_view(nxt))
-
-    row("fold_codeword", "fold_commit_leaves + upper tree levels (m = 2^%d)" % (log_m - 2), fused,
-        "fold_codeword + MerkleTree.commit of the pair leaves", fold_then_commit,
-        (m // 16) * (4 * 16 + 2 * 16 + 2 * 16 + 32))
-    del code, half_code, inv
-    clear_caches()
-    torch.cuda.empty_cache()
-
-    # Merkle hashing: the replaced route (byte-swapped copies, a concatenation,
-    # the message kernel; one launch per level) beside the leaves read in
-    # place and several levels a launch
-    for label, n_cols, log_leaves in ((f"2 x 2^{log_n}", 2, log_n), (f"20 x 2^{log_b}", 20, log_b)):
-        cols = random_field(rng, (n_cols, 1 << log_leaves), dev)
-        row("sha256_leaves", f"{label}: limbs_to_words + torch.cat + message kernel",
-            lambda: previous_routes.leaf_hashes(cols), "leaf_hashes: columns hashed in place",
-            lambda: merkle.leaf_hashes(cols), (16 * n_cols + 32) << log_leaves, same=True)
-        del cols
-    leaf = torch.from_numpy(
-        rng.integers(0, 2**32, size=(1 << log_n, 8), dtype=np.uint32).view(np.int32)).to(dev)
-    tree_bytes = 64 * ((1 << log_n) - 1) + 32
-    row("merkle_levels", f"2^{log_n} leaf digests: one message-kernel launch per level ({log_n})",
-        lambda: tuple(previous_routes.tree_levels(leaf)),
-        f"tree_levels: {len(sha256_cuda.levels_plan(1 << log_n))} launches", lambda: tuple(merkle.tree_levels(leaf)),
-        tree_bytes, same=True)
-    narrow = [(1 << b, min(b, 9), 1) for b in range(log_n, 0, -9)]
-    wide = [(1 << b, min(b, 11), 4) for b in range(log_n, 0, -11)]
-    row("merkle_levels block width", f"512 digests a block, 9 levels a launch ({len(narrow)} launches)",
-        lambda: tuple(sha256_cuda._tree_levels_launch(leaf, narrow)),
-        f"2048 digests a block, 11 levels a launch ({len(wide)} launches)",
-        lambda: tuple(sha256_cuda._tree_levels_launch(leaf, wide)), tree_bytes, same=True)
-    # the block widths on the smaller trees of a prove: device time alone
-    # (replayed graphs) and as the host launches them
-    widths = []
-    for bits in range(10, min(23, log_n + 1)):  # no wider than the leaves made above
-        sub = leaf[: 1 << bits].contiguous()
-        narrow = [(1 << b, min(b, 9), 1) for b in range(bits, 0, -9)]
-        wide = [(1 << b, min(b, 11), 4) for b in range(bits, 0, -11)]
-        res = compare(tuple(sha256_cuda._tree_levels_launch(sub, narrow)),
-                      tuple(sha256_cuda._tree_levels_launch(sub, wide)))
-        if res["mismatches"]:
-            raise RuntimeError(f"merkle_levels block widths disagree at 2^{bits}: {res}")
-        entry = {"log2_leaf_digests": bits, "default_plan": sha256_cuda.levels_plan(1 << bits)}
-        for name, plan in (("narrow", narrow), ("wide", wide), ("default", entry["default_plan"])):
-            entry[f"{name}_device_ms"] = graph_ms(lambda: sha256_cuda._tree_levels_launch(sub, plan))
-            entry[f"{name}_launched_ms"] = time_ms(lambda: sha256_cuda._tree_levels_launch(sub, plan), 50)
-        widths.append(entry)
-        del sub
-    small = leaf[: 1 << 12].contiguous()
-    row("merkle_levels, a small tree", "2^12 leaf digests: one message-kernel launch per level (12)",
-        lambda: tuple(previous_routes.tree_levels(small)), "tree_levels: 2 launches",
-        lambda: tuple(merkle.tree_levels(small)), 64 * ((1 << 12) - 1) + 32, same=True)
-    del leaf, small
-
-    # the encode's Moebius step: clone + three passes of the replaced kernel,
-    # a bit-reversal gather and a copy into a zeroed tensor, beside the two
-    # passes whose last store does the reversal and the padding; and the
-    # kernel's two tile sizes
-    zm_alone = []
-
-    def previous_encode_input(x):
-        y = mle.bit_reverse(previous_routes.zm_butterfly(x, False))
-        padded = torch.zeros(x.shape[:-2] + (2 * x.shape[-2], 4), dtype=torch.int32, device=dev)
-        padded[..., : x.shape[-2], :] = y
-        return padded
-
-    def with_tile(x, tile_bits, reverse):
-        out = torch.empty(x.shape[:-2] + ((2 if reverse else 1) * x.shape[-2], 4), dtype=torch.int32, device=dev)
-        if reverse:
-            out[..., x.shape[-2]:, :].zero_()
-        cuda_ops._zm_launches(x, False, out, reverse, tile_bits)
-        return out
-
-    for label, shape in ((f"2^{log_n}", (1 << log_n,)), (f"{BATCH_POLYS} x 2^{log_b}", (BATCH_POLYS, 1 << log_b))):
-        x = random_field(rng, shape, dev)
-        n_el = x.numel() // 4
-        bits = shape[-1].bit_length() - 1
-        row("zm_butterfly", f"{label}: clone + {len(previous_routes.zm_passes(bits))} passes (2^11 tile)",
-            lambda: previous_routes.zm_butterfly(x, False),
-            f"zm_butterfly: {len(cuda_ops.zm_passes(bits))} passes, no clone", lambda: cuda_ops.zm_butterfly(x, False),
-            32 * n_el, same=True)
-        row("zm_butterfly + bit_reverse + pad", f"{label}: previous passes + index_select + padded copy",
-            lambda: previous_encode_input(x), "to_coeffs_bitrev_padded: the last pass stores it",
-            lambda: mle.to_coeffs_bitrev_padded(x, 1), 48 * n_el, same=True)
-        # each pass alone, beside a device copy of the same table: no pass
-        # can be faster than that
-        out = torch.empty_like(x)
-        padded = torch.empty(shape[:-1] + (2 * shape[-1], 4), dtype=torch.int32, device=dev)
-        alone = {"shape": list(shape), "device_copy_ms": time_ms(lambda: out.copy_(x), 5), "passes": []}
-        for tile_bits in (12, 13):
-            for d, c, log_w in cuda_ops.zm_passes(bits, tile_bits):
-                for reverse in ((False, True) if d + c == bits else (False,)):
-                    ms = time_ms(lambda: cuda_ops._launch(
-                        "zm_butterfly", "mlt_zm_tiles", dev, x.data_ptr(), (padded if reverse else out).data_ptr(),
-                        n_el, d, c, log_w, 0, bits if reverse else 0, 2 * shape[-1] if reverse else 0, tile_bits), 5)
-                    alone["passes"].append({"tile_bits": tile_bits, "first_bit": d, "bits": c, "log2_run": log_w,
-                                            "bit_reversed_store": reverse, "ms": ms})
-        # the whole transform on tensors at four different places in device
-        # memory (each allocation kept while the next is made), with the
-        # clock the card holds meanwhile
-        held = []
-        for _ in range(4):
-            xi, oi = x.clone(), torch.empty_like(x)
-            held.append((xi, oi))
-            ms = time_ms(lambda: cuda_ops._zm_launches(xi, False, oi, False), 10)
-            alone.setdefault("whole_at_four_places_ms", []).append(ms)
-        for _ in range(300):
-            cuda_ops._zm_launches(xi, False, oi, False)
-        alone["clocks_meanwhile"] = run_text(["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm,clocks.mem,power.draw",
-                                              "--format=csv,noheader"])
-        torch.cuda.synchronize()
-        del held, xi, oi
-        zm_alone.append(alone)
-        del out, padded
-        for reverse in (False, True):
-            row("zm_butterfly tile" + (" (bit-reversed store)" if reverse else ""),
-                f"{label}: 2^12 tile, {len(cuda_ops.zm_passes(bits, 12))} passes", lambda: with_tile(x, 12, reverse),
-                f"2^13 tile, {len(cuda_ops.zm_passes(bits, 13))} passes", lambda: with_tile(x, 13, reverse),
-                (48 if reverse else 32) * n_el, same=True)
-        del x
-    clear_caches()
-    torch.cuda.empty_cache()
-
-    # the batched encode: one batch through kernels that carry a batch
-    # extent, or one polynomial at a time through the same kernels
-    polys = random_field(rng, (BATCH_POLYS, 1 << log_b), dev)
-    encode = {}
-    for name, fn in (("one_batch", lambda: fri.encode_mle_for_fri(polys)),
-                     ("loop_over_polys", lambda: torch.stack([fri.encode_mle_for_fri(q) for q in polys]))):
-        fn()
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        before = torch.cuda.memory_allocated()
-        encode[name] = {"ms": time_ms(fn, 2), "peak_extra_bytes": torch.cuda.max_memory_allocated() - before}
-    del polys
-    clear_caches()
-    torch.cuda.empty_cache()
-    round_rows = round_kernel_routes(dev)
-    emit("routes", log_n=log_n, routes=rows, kron_parts=kron_parts, merkle_block_widths=widths,
-         zm_passes_alone=zm_alone,
-         batched_encode={"shape": [BATCH_POLYS, 1 << log_b], **encode}, round_kernels=round_rows)
-    return round_rows
-
-
-# ---------------------------------------------------------------------------
 # the main paths
 # ---------------------------------------------------------------------------
 
@@ -1843,7 +1542,7 @@ def snark_rounds_without_sync(kind: str, trace: Trace, config: ProverConfig, wan
     (with the outputs) and the PCS run after the mode is reset, and the
     proof must be the timed prove's, byte for byte.  The host clock around the rounds is
     the host's issue time: nothing in them waits for the card.  Every round
-    must take the fused route (``sumcheck_rounds_fused``), and a second
+    must take the kernel route (``sumcheck_rounds_fused``), and a second
     session's rounds under the profiler must run at most 3 operations a
     round on the card, PyTorch's own included."""
     session = SnarkProverSession(Transcript(), *snark_constraints(kind, trace.width), trace, config=config)
@@ -1875,15 +1574,43 @@ def snark_rounds_without_sync(kind: str, trace: Trace, config: ProverConfig, wan
            "device_ops_in_rounds": device_ops, "device_ops_per_round": sum(device_ops.values()) / rounds,
            "host_issue_s_per_round": issue_s / launched, "proof_equals_timed_prove": True}
     if fused != launched or row["device_ops_per_round"] > 3:
-        raise RuntimeError(f"SNARK sumcheck: {fused} of {launched} rounds fused, "
+        raise RuntimeError(f"SNARK sumcheck: {fused} of {launched} rounds on the kernel route, "
                            f"{row['device_ops_per_round']} device operations a round (at most 3): {row}")
+    return row
+
+
+def snark_forced_wide(kind: str, trace: Trace, config: ProverConfig, want_sha256: str) -> dict:
+    """The SNARK once more with its program taken as wider than a block of
+    the card (``composition.max_slots`` patched to 0): its rounds' sums run
+    the plain version's loop over the card's add, sub and mul kernels
+    (``composition.round_sums``), and the proof must be the kernel route's,
+    byte for byte."""
+    real = cmp.max_slots
+    cmp.max_slots = lambda device: 0
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        blob = snark_proof_to_bytes(snark_prove(kind, trace, config))
+        torch.cuda.synchronize()
+        prove_s = time.perf_counter() - t0
+    finally:
+        cmp.max_slots = real
+    counts = stats.counts()
+    row = {"prove_s": prove_s, "proof_sha256": hashlib.sha256(blob).hexdigest(),
+           "rounds_on_the_kernel_route": counts.get("sumcheck_rounds_fused", 0),
+           "launches": {k: v for k, v in launch_counts().items() if v}}
+    row["equals_kernel_route"] = row["proof_sha256"] == want_sha256
+    if not row["equals_kernel_route"] or row["rounds_on_the_kernel_route"] or "sumcheck_sums" in row["launches"]:
+        raise RuntimeError(f"SNARK {kind} with its program forced wide: {row}, against {want_sha256}")
     return row
 
 
 def snark_phase(dev):
     """Each SNARK path once through ``System.prove_snark`` (timed to the end
     of the card's work) and ``System.verify_snark`` on the host, then its
-    sumcheck rounds once more under the sync check.  Returns {path: proof
+    sumcheck rounds once more under the sync check; P4 once more with its
+    program forced wide (``snark_forced_wide``).  Returns {path: proof
     SHA-256} and {path: peak device bytes}."""
     config = ProverConfig(device=str(dev))
     results = []
@@ -1927,6 +1654,7 @@ def snark_phase(dev):
             "proof_bytes": len(blob), "proof_sha256": digest, "peak_device_bytes": peak, "d2h_copies": d2h,
             "max_d2h": limit, "merkle_paths_built": paths_built, "launches": PATH_LAUNCHES[label],
             "rounds_without_sync": snark_rounds_without_sync(kind, trace, config, digest),
+            "forced_wide": snark_forced_wide(kind, trace, config, digest) if kind == "pythagorean" else None,
         })
         del trace
         clear_caches()
@@ -2215,13 +1943,12 @@ def power_constraint(e: int):
     return constraint
 
 
-def degree_phase(dev, round_routes: list) -> None:
+def degree_phase(dev) -> None:
     """A SNARK whose constraint has degree DEGREE, over one column of
     2^DEGREE_LOG_N bits (numpy seed 5000): proved on the card and on the
     CPU's plain path, the bytes equal, and verified; then its sumcheck
-    rounds once more on the card under the profiler (device time, the
-    round kernel's part, and the same with the one-thread kernel's time a
-    round from ``round_routes``, the routes phase's rows, in its place)."""
+    rounds once more on the card under the profiler (device time and the
+    round kernel's part)."""
     bits = np.random.default_rng(5000).integers(0, 2, size=1 << DEGREE_LOG_N).astype(np.uint64)
     cs, layout = ConstraintSet([power_constraint(DEGREE)], DEGREE), WitnessLayout(columns=1)
     out, secs = {}, {}
@@ -2248,11 +1975,8 @@ def degree_phase(dev, round_routes: list) -> None:
     busy = sum(e.device_time_total for e in ev) / 1e6
     kernel = [e for e in ev if "sumcheck_round_scalars" in e.key]
     kernel_s = sum(e.device_time_total for e in kernel) / 1e6
-    one_thread_ms = [float(np.median(r["old_ms"])) for r in round_routes if r.get("degree") == DEGREE + 1]
     rounds_device = {"rounds": rounds, "traced_rounds_s": wall, "device_busy_s": busy,
-                     "round_kernel_device_s": kernel_s, "round_kernel_launches": sum(e.count for e in kernel),
-                     "with_the_one_thread_kernel_s": (busy - kernel_s + rounds * one_thread_ms[0] / 1e3
-                                                      if one_thread_ms else None)}
+                     "round_kernel_device_s": kernel_s, "round_kernel_launches": sum(e.count for e in kernel)}
     emit("degree", path=DEGREE_PATH, round_total_degree=DEGREE + 1, card_prove_s=secs[str(dev)],
          cpu_prove_s=secs["cpu"], proof_bytes=len(out["cpu"]), card_equals_cpu=ok,
          sha256=hashlib.sha256(out[str(dev)]).hexdigest(), verified=True, sumcheck_rounds_device=rounds_device)
@@ -2615,6 +2339,13 @@ def sharded_phase(dev, pcs_log_n: int, batched_log_n: int, pcs_sha: str, batched
                 if kind == "pcs":
                     line["single_rank_peak_device_bytes"] = pcs_peak
                 if kind.startswith("snark_"):
+                    # a rank runs its block's sums as one device does: one
+                    # sumcheck_sums launch a round
+                    kernel_rounds = [row["launches"]["sumcheck_sums"] for row in rows]
+                    if kernel_rounds != [log_n] * world:
+                        raise RuntimeError(f"{label}: sumcheck_sums launches per rank {kernel_rounds}, not one in "
+                                           f"each of the {log_n} rounds")
+                    line["sumcheck_sums_launches_per_rank"] = kernel_rounds
                     line["single_rank_peak_device_bytes"] = snark_peaks[snark_path(kind)[0]]
                     line["sum_bytes_per_sumcheck_round_rank0"] = sorted(set(rows[0]["sc_sum_bytes"]))
                     line["max_d2h"] = limit
@@ -2809,9 +2540,8 @@ def main() -> int:
     counted = count_primitive_ops()
     OPS.update(counted["ops"])
     spent = {}
-    for stem in ("sha256_words", "sha256_leaves", "merkle_levels", "prev_sha256_words", "fold_commit",
-                 "fold", "mul", "kron", "prev_kron", "twiddle_mul3", "zm", "round_scalars", "prev_round_scalars",
-                 "sumcheck_round"):
+    for stem in ("sha256_words", "sha256_leaves", "merkle_levels", "fold_commit", "fold", "mul", "kron",
+                 "twiddle_mul3", "zm", "round_scalars", "sumcheck_round"):
         for fn, c in sass_int_ops(_build.library_paths[stem]).items():
             spent[f"{stem}:{fn}"] = {k: c[k] for k in ("alu", "fma", "either", "int", "all")}
     emit("bounds", peak_bytes_per_s=PEAK_BYTES_PER_S, **PEAK,
@@ -2823,14 +2553,13 @@ def main() -> int:
 
     first_snark_phase()
     timed = kernels_phase(dev)
-    round_routes = routes_phase(dev, log_sizes[-1], batched_sizes[-1])
     pcs_sha, pcs_peak = pcs_phase(dev, log_sizes)
     batched_sha = batched_pcs_phase(dev, batched_sizes)
     snark_shas, snark_peaks = snark_phase(dev)
     with tempfile.TemporaryDirectory() as kept:
         checkpoint_paths, single_files = checkpoint_phase(dev, log_sizes[-1], batched_sizes[-1], pcs_sha,
                                                           batched_sha, snark_shas, kept)
-        degree_phase(dev, round_routes)
+        degree_phase(dev)
         api_phase(dev)
         sharded_paths = sharded_phase(dev, log_sizes[-1], batched_sizes[-1], pcs_sha, batched_sha, pcs_peak,
                                       snark_shas, snark_peaks, single_files)
@@ -2859,7 +2588,6 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "shapes": row["shapes"], "bound_share": row["bound_share"],
-            **({"one_thread_bound_ms": row["one_thread_bound_ms"]} if "one_thread_bound_ms" in row else {}),
         })
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:

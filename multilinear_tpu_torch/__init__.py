@@ -28,9 +28,8 @@ What it covers, on one device:
 * the building blocks: the field (``field``), the NTT and its inverse
   (``ntt``), multilinear polynomials (``mle``), univariate polynomials
   (``poly``), proof bytes (``serialize``), counters and phase timers
-  (``stats``, ``utils``), the runtime config (``config``), and the kernels
-  that later ones replaced, kept for comparison (``previous_routes``), and
-  the inputs of the golden proofs (``testdata``).
+  (``stats``, ``utils``), the runtime config (``config``), and the inputs of
+  the golden proofs (``testdata``).
 
 Across W ranks, one process each over ``torch.distributed`` (``parallel``:
 the JAX package's ``parallel`` and ``dist``): the PCS and the standalone FRI
@@ -55,7 +54,6 @@ __all__ = [
     "parallel",
     "pcs",
     "poly",
-    "previous_routes",
     "serialize",
     "sha256",
     "sha256_cuda",

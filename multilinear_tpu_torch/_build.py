@@ -63,14 +63,6 @@ KERNELS = {
     "mlt_sumcheck_sums": ("sumcheck_round", [_p, _i64, _int, _int, _p, _int, _p, _int, _p, _int, _p]),
     "mlt_sumcheck_fold": ("sumcheck_round", [_p, _p, _i64, _i64, _p, _int, _p]),
     "mlt_sumcheck_max_slots": ("sumcheck_round", [_int]),
-    # the kernels that sha256_leaves / merkle_levels / zm / kron / round_scalars
-    # replaced, bound only for previous_routes.py (the smoke script's
-    # comparison of routes)
-    "mlt_sha256_words": ("prev_sha256_words", [_p, _p, _i64, _int, _int, _p]),
-    "mlt_zm": ("prev_zm", [_p, _i64, _i64, _int, _int, _int, _int, _p]),
-    "mlt_kron": ("prev_kron", [_p, _p, _p, _i64, _i64, _int, _p]),
-    "mlt_round_scalars_one_thread": ("prev_round_scalars", [_p, _p, _p, _p, _p, _p, _p, _int, _p]),
-    "mlt_sumcheck_round_scalars_one_thread": ("prev_round_scalars", [_p, _p, _p, _int, _p, _p, _p, _p, _int, _p]),
 }
 # Built with the kernels but never loaded: probe kernels whose machine code
 # the smoke script reads to count the instructions of each primitive.

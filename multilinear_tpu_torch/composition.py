@@ -1,21 +1,25 @@
 """A sumcheck composition traced once to a straight-line program, and the
-two kernels of a fused constraint-sumcheck round that run it
+two kernels of a constraint-sumcheck round that run it
 (``csrc/sumcheck_round.cu``).
 
 :func:`trace` calls the composition once over stand-ins for the columns
 and the aux scalars and records every ``+``, ``-``, ``*`` and unary ``-``
-it makes - the whole contract of ``ops.FA`` - as one instruction over
-slots.  Nothing is evaluated: the program holds the composition's
-arithmetic, and a round evaluates it at every extension point of every row
-pair on the card.  A composition that steps outside the contract raises
-(``TypeError``); one that returns a host scalar is a program with a
-constant result.  Programs are cached by (composition, columns, aux
-count): a constraint set is traced once a process, not once a proof.
+it makes - the whole contract a constraint is written against - as one
+instruction over slots.  Nothing is evaluated: the program holds the
+composition's arithmetic, and a round evaluates it at every extension
+point of every row pair.  This is the one place the prover calls a
+composition (the verifier calls it over host ``Fp``).  A composition that
+steps outside the contract raises (``TypeError``); one that returns a host
+scalar is a program with a constant result.  Programs are cached by
+(composition, columns, aux count): a constraint set is traced once a
+process, not once a proof.
 
 An operand is a slot (``>= 0``: the columns the program reads, at the
 current point, then the temporaries) or a scalar (``< 0``: scalar
 ``-1 - o`` of the aux scalars followed by the program's constants).  The
-packed form, an int32 array, is what both versions read:
+packed form, an int32 array, is what the kernel reads (the plain version
+reads the instructions from the :class:`Program`, and its constants from
+the packed copy on the table's device):
 
 * words 0-7: columns read, temporaries, instructions, result operand,
   constants, aux scalars, 0, 0;
@@ -29,9 +33,13 @@ version beside each; counted in ``stats`` as ``launch.<kernel>``):
 * ``sumcheck_sums`` - the round's unreduced limb sums of s(1)..s(d): each
   row pair of the packed (w+1, h, 4) table read once, the extensions formed
   incrementally, the program run at each point and weighted by the delta
-  row's extension, the limbs added into int64 lanes;
+  row's extension, the limbs added into int64 lanes.  :func:`round_sums`
+  decides the route: the kernel where the program fits a block of the
+  card, else the plain version's loop (:func:`evaluate`) over the card's
+  add, sub and mul kernels;
 * ``sumcheck_fold`` - the whole table folded with the round's challenge,
-  lo + r (hi - lo), in one pass.
+  lo + r (hi - lo), in one pass: every sumcheck table's fold, the PCS's
+  included.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import stats
 from .field import cuda_ops, limbs, ops
 from .field.scalar import Fp
 
@@ -51,7 +60,7 @@ HEADER_WORDS = 8
 
 
 class _Sym:
-    """A stand-in for an ``ops.FA`` value while a composition is traced:
+    """A stand-in for a field value while a composition is traced:
     each operation records one instruction and returns its result's
     stand-in."""
 
@@ -93,7 +102,8 @@ class _Tracer:
         if isinstance(o, _Sym) and o.tracer is self:
             return o.ref
         if isinstance(o, (int, Fp)):
-            # as ops._coerce reads a constant (a negative int wraps mod 2^128 first, Q4)
+            # Fp semantics, as the verifier's host arithmetic reads a
+            # constant (a negative int wraps mod 2^128 first, Q4)
             return ("const", Fp(o).v)
         raise TypeError(f"cannot combine a field value with {type(o).__name__}")
 
@@ -140,7 +150,7 @@ def trace(composition, n_cols: int, n_aux: Optional[int]) -> Program:
         else:
             out = composition(cols, [_Sym(tracer, ("aux", k)) for k in range(n_aux)])
     except (TypeError, AttributeError) as e:
-        raise TypeError("the composition steps outside the arithmetic of ops.FA (+, -, * and unary - over "
+        raise TypeError("the composition steps outside the field's arithmetic (+, -, * and unary - over "
                         f"the columns, the aux scalars and int or Fp constants): {e}") from e
     if not isinstance(out, (_Sym, int, Fp)):
         raise TypeError(f"the composition returned a {type(out).__name__}, not a field value")
@@ -194,19 +204,6 @@ def _compile(nodes, result_ref, n_aux: int) -> Program:
     return Program(cols, n_temps, instrs, operand(result_ref), consts, n_aux)
 
 
-def _unpack(packed):
-    """(cols, instrs, result, consts as (n, 4) int32, n_aux) of a packed
-    program."""
-    p = np.asarray(packed, dtype=np.int32)
-    n_cols, _, n_instr, result, n_consts, n_aux = (int(x) for x in p[:6])
-    at = HEADER_WORDS
-    consts = torch.from_numpy(p[at : at + 4 * n_consts].reshape(n_consts, 4).copy())
-    at += 4 * n_consts
-    instrs = p[at : at + 4 * n_instr].reshape(n_instr, 4).tolist()
-    at += 4 * n_instr
-    return p[at : at + n_cols].tolist(), instrs, result, consts, n_aux
-
-
 # ---------------------------------------------------------------------------
 # sumcheck_sums: the round's sums
 # ---------------------------------------------------------------------------
@@ -232,35 +229,55 @@ def max_slots(device) -> Optional[int]:
     return _MAX_SLOTS[index]
 
 
-def round_sums_plain(data: torch.Tensor, packed, aux: Optional[torch.Tensor], degree: int,
+def evaluate(program: Program, slots, scalars, prims):
+    """The program's value at one point: ``slots`` the values of its column
+    slots (the trace columns ``Program.cols`` names, in that order),
+    ``scalars`` its aux scalars then its constants, ``prims`` the field's
+    (add, sub, mul) to run it on - the plain versions, or ``ops.add``,
+    ``ops.sub`` and ``ops.mul``, which launch the device's kernels."""
+    values = dict(enumerate(slots))
+
+    def val(o):
+        return values[o] if o >= 0 else scalars[-1 - o]
+
+    for op, dst, a, b in program.instrs:
+        x = val(a)
+        values[dst] = prims[OP_SUB](x.new_zeros(4), x) if op == OP_NEG else prims[op](x, val(b))
+    return val(program.result)
+
+
+def _sums_loop(data: torch.Tensor, program: Program, aux: Optional[torch.Tensor], degree: int, out: torch.Tensor,
+               prims) -> None:
+    """Adds s(1)..s(degree) into ``out``, the program run by
+    :func:`evaluate` over whole extensions of the table halves; its
+    constants are read as (4,) views of the packed program on the table's
+    device (``Program.on``)."""
+    n_consts = len(program.consts)
+    consts = program.on(data.device)[HEADER_WORDS : HEADER_WORDS + 4 * n_consts].view(n_consts, 4)
+    scalars = list(aux[: program.n_aux] if program.n_aux else []) + list(consts)
+    add, sub, mul = prims
+    w, half = data.shape[0] - 1, data.shape[1] // 2
+    lo, hi = data[:, :half], data[:, half:]
+    cur = hi
+    for x in range(1, degree + 1):
+        if x == 2:
+            step = sub(hi, lo)
+        if x > 1:
+            cur = add(cur, step)
+        res = evaluate(program, [cur[c] for c in program.cols], scalars, prims)
+        out[x - 1] += ops.sum_limbs(mul(cur[w], res), dim=0)
+
+
+_PLAIN = (ops.add_plain, ops.sub_plain, cuda_ops.mul_plain)
+
+
+def round_sums_plain(data: torch.Tensor, program: Program, aux: Optional[torch.Tensor], degree: int,
                      out: torch.Tensor) -> None:
     """What one launch of ``sumcheck_sums`` does, in tensor code: adds the
     unreduced limb sums of s(1)..s(degree) into ``out`` ((degree, 4) int64),
     s(X) = sum_i delta_X[i] * program(cols_X)[i] over the row pairs
     (i, i + h/2) of ``data`` (w+1, h, 4), the delta row last."""
-    cols, instrs, result, consts, n_aux = _unpack(packed)
-    w, half = data.shape[0] - 1, data.shape[1] // 2
-    scalars = list(aux[:n_aux] if n_aux else []) + list(consts.to(data.device))
-    lo, hi = data[:, :half], data[:, half:]
-    idx = torch.tensor(cols + [w], dtype=torch.int64, device=data.device)
-    cur, step = hi[idx], ops.sub_plain(hi[idx], lo[idx])
-    slots = {}
-
-    def val(o):
-        return slots[o] if o >= 0 else scalars[-1 - o]
-
-    for x in range(1, degree + 1):
-        if x > 1:
-            cur = ops.add_plain(cur, step)
-        slots.update(enumerate(cur[:-1]))
-        for op, dst, a, b in instrs:
-            if op == OP_NEG:
-                slots[dst] = ops.sub_plain(torch.zeros_like(val(a)), val(a))
-            else:
-                fn = (ops.add_plain, ops.sub_plain, cuda_ops.mul_plain)[op]
-                slots[dst] = fn(val(a), val(b))
-        prod = cuda_ops.mul_plain(cur[-1], val(result))
-        out[x - 1] += ops.sum_limbs(prod, dim=0)
+    _sums_loop(data, program, aux, degree, out, _PLAIN)
 
 
 def round_sums(data: torch.Tensor, program: Program, aux: Optional[torch.Tensor], degree: int,
@@ -268,7 +285,15 @@ def round_sums(data: torch.Tensor, program: Program, aux: Optional[torch.Tensor]
     """Add the round's unreduced limb sums of s(1)..s(degree) into ``out``
     ((degree, 4) int64, zero before a round: the kernel adds with atomics);
     arguments as in :func:`round_sums_plain`, ``aux`` the (n_aux, 4) aux
-    scalars the program reads, or None if it reads none."""
+    scalars the program reads, or None if it reads none.
+
+    The route is chosen here, from the tensor's device and the program's
+    width: on a card, a program that fits a block (:func:`max_slots`) runs
+    in one ``sumcheck_sums`` launch, and a wider one runs the plain
+    version's loop over ``ops.add``, ``ops.sub`` and ``ops.mul`` (a launch
+    an operation); a CPU tensor, which has no limit, runs the plain version.
+    ``stats`` counts the rounds that take the kernel or its plain version
+    as ``sumcheck_rounds_fused``."""
     cuda_ops._check_field("sumcheck_sums: data", data)
     if data.dim() != 3 or data.shape[1] < 2 or data.shape[1] & (data.shape[1] - 1):
         raise ValueError(f"sumcheck_sums: expected a (w+1, h, 4) table, h a power of two >= 2, "
@@ -287,14 +312,14 @@ def round_sums(data: torch.Tensor, program: Program, aux: Optional[torch.Tensor]
             or not out.is_contiguous() or out.device != data.device or degree < 1:
         raise ValueError(f"sumcheck_sums: out must be a contiguous ({degree}, 4) int64 tensor on {data.device}, "
                          "degree >= 1")
-    if data.device.type == "cpu":
-        round_sums_plain(data, program.packed, aux, degree, out)
+    slots, limit = program.slots(degree), max_slots(data.device)
+    if limit is not None and slots > limit:
+        _sums_loop(data, program, aux, degree, out, (ops.add, ops.sub, ops.mul))
         return
-    slots = program.slots(degree)
-    limit = max_slots(data.device)
-    if slots > limit:
-        raise ValueError(f"sumcheck_sums: the program needs {slots} slots a thread; a block of this card holds "
-                         f"{limit}")
+    stats.bump("sumcheck_rounds_fused")
+    if data.device.type == "cpu":
+        round_sums_plain(data, program, aux, degree, out)
+        return
     cuda_ops._launch("sumcheck_sums", "mlt_sumcheck_sums", data.device, data.data_ptr(), data.shape[1], w,
                      degree, program.on(data.device).data_ptr(), slots,
                      aux.data_ptr() if program.n_aux else None, program.n_aux, out.data_ptr())

@@ -54,8 +54,7 @@
 // waits for a broadcast of the chaining words; the 16 words of a block are
 // made a word a lane and gathered by shuffles.  The absorb moves whole
 // 32-bit words, shifted into place with funnel shifts when the fill is not a
-// multiple of 4.  The one-thread kernels these replaced are kept in
-// prev_round_scalars.cu.
+// multiple of 4.
 #include "field.cuh"
 #include "sha256.cuh"
 

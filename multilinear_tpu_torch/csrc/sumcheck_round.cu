@@ -4,11 +4,12 @@
 // Replaces the round body of the JAX package's standalone sumcheck
 // (`_sc_round_body`, multilinear_tpu/sumcheck.py): the partial sums over a
 // user composition and the fold, which the TPU runs inside the round's XLA
-// program and no Pallas kernel.  In eager PyTorch the same round took about
-// 45 launches, each writing a full-size temporary (the composition's ops.FA
-// kernels at each point, the delta multiply, the limb sums, the extensions,
-// three for the fold); here the table is read once for the sums and once
-// for the fold, and nothing else touches device memory.
+// program and no Pallas kernel.  Run operation by operation, the same round
+// takes about 45 launches, each writing a full-size temporary (the
+// composition's add, sub and mul at each point, the delta multiply, the limb
+// sums, the extensions); here the table is read once for the sums and once
+// for the fold, and nothing else touches device memory.  A program wider
+// than a block runs operation by operation (composition.round_sums).
 //
 // sumcheck_sums_kernel: the packed (w+1, h, 4) table, delta row last, pairs
 // row i with i + h/2.  A thread takes row pairs in a grid-stride loop, keeps

@@ -25,7 +25,7 @@ from typing import List, Optional
 import torch
 
 from . import limbs
-from .scalar import K_FOLD, Fp, P
+from .scalar import K_FOLD, P
 
 _M32 = 0xFFFFFFFF
 _M16 = 0xFFFF
@@ -304,57 +304,8 @@ def pow_const(a: torch.Tensor, e: int) -> torch.Tensor:
     return result
 
 
-# ---------------------------------------------------------------------------
-# operator overloading for constraint expressions
-# ---------------------------------------------------------------------------
-
-
-class FA:
-    """Operator-overloading wrapper over a field tensor, so that one
-    constraint ``Expr`` runs unchanged over tensors in the prover and over
-    host ``Fp`` scalars in the verifier (reference Expr = fn(&[F], &[F]) -> F,
-    src/constraint_system/constraints.rs:3-10).  ``+``, ``-``, ``*`` and
-    unary ``-`` go through the add, sub and mul kernels; a host ``Fp`` or
-    ``int`` operand is packed once into a (4,) tensor that the kernels read
-    broadcast (never a full-size constant)."""
-
-    __slots__ = ("a",)
-
-    def __init__(self, a: torch.Tensor):
-        self.a = a
-
-    def __add__(self, o):
-        return FA(add(self.a, _coerce(o, self.a)))
-
-    __radd__ = __add__
-
-    def __sub__(self, o):
-        return FA(sub(self.a, _coerce(o, self.a)))
-
-    def __rsub__(self, o):
-        return FA(sub(_coerce(o, self.a), self.a))
-
-    def __mul__(self, o):
-        return FA(mul(self.a, _coerce(o, self.a)))
-
-    __rmul__ = __mul__
-
-    def __neg__(self):
-        return FA(neg(self.a))
-
-
 @lru_cache(maxsize=256)
 def packed_scalar(v: int, device: torch.device) -> torch.Tensor:
     """The (4,) limb tensor of the canonical value ``v`` on ``device``, made
     once (through pinned memory: the copy does not make the host wait)."""
     return limbs.pack_int(v, device=device)
-
-
-def _coerce(o, like: torch.Tensor) -> torch.Tensor:
-    if isinstance(o, FA):
-        return o.a
-    if isinstance(o, (int, Fp)):
-        # Fp semantics, so that the prover reads a constant as the verifier's
-        # host arithmetic does (a negative int wraps mod 2^128 first, Q4)
-        return packed_scalar(Fp(o).v, like.device)
-    raise TypeError(f"cannot combine a field tensor with {type(o).__name__}")

@@ -9,8 +9,9 @@ unchanged: it asks the tables for the round's sums, launches the same
 root, so the same challenge), folds the tables and calls the FRI layer's
 ``fold_step``.  Per round, a rank:
 
-* sums its block (``_partial_sums_kernel``), reduces the sums to canonical
-  residues and adds them over the ranks (``comm.exact_sum``: 64 bytes);
+* sums its block by the single device's route, reduces the sums to
+  canonical residues and adds them over the ranks (``comm.exact_sum``: 64
+  bytes);
 * folds its table block and its codeword block, and hashes the new pair
   leaves (``fold_commit_leaves``), with no traffic: in the cyclic layout the
   pairs (i, i + m/2) and (i, i + m/4) lie on one rank.  The fold's twiddle
@@ -22,9 +23,11 @@ root, so the same challenge), folds the tables and calls the FRI layer's
 
 A SNARK's trace sumcheck (``sumcheck.DeviceSumcheckRounds`` on
 :meth:`ShardedTables.for_trace`) runs the same way: its composition is
-elementwise, so each rank evaluates it on its block; the d sums cross the
-ranks (32 d bytes a round), every rank launches the same
-``sumcheck_round_scalars`` and the fold moves nothing.
+elementwise, so each rank runs its program on its block
+(``composition.round_sums``, the ``sumcheck_sums`` kernel where the program
+fits a block); the d sums cross the ranks (32 d bytes a round), every rank
+launches the same ``sumcheck_round_scalars`` and the fold
+(``sumcheck_fold``) moves nothing.
 
 **Where sharding stops.**  A round runs sharded while the codeword it folds
 has at least 4 W^2 values: its q = m/4 new leaves then give each rank pair
@@ -49,7 +52,7 @@ from ..fri import FriError, FriProverData, _pair_view, _rh_limbs
 from ..merkle import MerkleTree
 from ..mle import factor_subtables
 from ..ntt import _pow_table, inv_gen_pows
-from ..sumcheck import PCS_DEGREE, SumcheckTables, _pack_tables_kernel, _partial_sums_kernel, identity_composition
+from ..sumcheck import SumcheckTables, _pack_tables_kernel
 from ..transcript import Transcript
 from . import ShardLayout, gather_cyclic, to_cyclic
 from .merkle import ShardedMerkleTree, gather_many
@@ -142,8 +145,8 @@ class ShardedTables(SumcheckTables):
                    counter: str = "rounds_sharded") -> "ShardedTables":
         """This rank's tables from the whole (w+1, height, 4) table of a
         checkpoint: its cyclic block while a block keeps at least two rows,
-        else the whole table on every rank, as :meth:`partial_sums` leaves
-        it once gathered."""
+        else the whole table on every rank, as a round's sums leave it once
+        gathered (:meth:`_over_ranks`)."""
         if data.shape[1] >= 2 * layout.world:
             return ShardedTables(layout.cyclic_rows(data), height, layout, debug_checks, counter)
         tables = ShardedTables(data.to(layout.device), height, layout, debug_checks, counter)
@@ -155,16 +158,16 @@ class ShardedTables(SumcheckTables):
         while the table is sharded)."""
         return gather_cyclic(self.data, self.layout) if self.sharded else self.data
 
-    def partial_sums(self, composition=identity_composition, total_degree: int = PCS_DEGREE,
-                     aux=None) -> torch.Tensor:
-        """The round's sums over the whole table: this rank's, reduced, then
-        added over the ranks (``comm.exact_sum``: 32 bytes an evaluation);
-        once a block is down to one row, the table is gathered (w+1 rows of
-        W values) and the rest runs on the whole table on every rank."""
+    def _over_ranks(self, local_sums, *args) -> torch.Tensor:
+        """The round's sums over the whole table: ``local_sums(*args)`` on
+        this rank's block (the single device's route), reduced, then added
+        over the ranks (``comm.exact_sum``: 32 bytes an evaluation); once a
+        block is down to one row, the table is gathered (w+1 rows of W
+        values) and the rest runs on the whole table on every rank."""
         if self.sharded and self.data.shape[1] < 2:
             self.data = gather_cyclic(self.data, self.layout)
             self.sharded = False
-        local = _partial_sums_kernel(self.data, total_degree, composition, aux)
+        local = local_sums(*args)
         if not self.sharded:
             return local
         stats.bump(self.counter)
@@ -172,6 +175,12 @@ class ShardedTables(SumcheckTables):
         sums = self.layout.comm.exact_sum(local)
         stats.append(self.counter + "_sum_bytes", stats.counts()["collective_bytes"] - before)
         return sums
+
+    def partial_sums(self) -> torch.Tensor:
+        return self._over_ranks(super().partial_sums)
+
+    def program_sums(self, program, aux, degree: int, out: torch.Tensor) -> torch.Tensor:
+        return self._over_ranks(super().program_sums, program, aux, degree, out)
 
 
 class ShardedFriProverData(FriProverData):

@@ -16,19 +16,21 @@ delta row and sums the limbs unreduced; the round's Fiat-Shamir kernel
 reduces the sums:
 
 * the PCS (``pcs.DeviceRounds``) calls :meth:`SumcheckTables.partial_sums`
-  with the identity composition and ``device_transcript.round_scalars``;
+  (the identity composition) and ``device_transcript.round_scalars``;
 * the standalone sumcheck of the constraint system
   (:meth:`SumcheckTables.compute_all_rounds`, :class:`DeviceSumcheckRounds`)
   evaluates any composition and calls
   ``device_transcript.sumcheck_round_scalars``, which interpolates through
-  V^-1.  On one device its round is three launches: the composition, traced
-  once to a program (``composition.trace``), runs in ``sumcheck_sums`` at
-  every extension point, then the round's scalars, then ``sumcheck_fold``
-  (``stats``: ``sumcheck_rounds_fused``).  Its rounds copy nothing to the
-  host; one copy after the last round brings the coefficients, the randoms,
-  the folded columns (each column's MLE at the randoms) and the device's
-  digest back, and the host replays the absorbs and challenges and checks
-  them.
+  V^-1.  The composition is traced once to a program
+  (``composition.trace``), and a round is three launches on one card: the
+  program's sums (``composition.round_sums``, which picks the kernel or
+  the wider programs' route), the round's scalars, then the fold.  Its
+  rounds copy nothing to the host; one copy after the last round brings the
+  coefficients, the randoms, the folded columns (each column's MLE at the
+  randoms) and the device's digest back, and the host replays the absorbs
+  and challenges and checks them.
+
+Every table folds in one ``sumcheck_fold`` launch (``composition.round_fold``).
 """
 
 from __future__ import annotations
@@ -51,22 +53,18 @@ from .sha256 import digest_to_bytes
 from .transcript import Transcript
 from .utils import span
 
-PCS_DEGREE = 2  # identity composition times the delta weights
-
-# A composition maps the per-column ``ops.FA`` values of the extended table
-# to one ``ops.FA`` (or a host scalar).  Two calling conventions, as in the
-# JAX package: composition(cols) when there are no aux scalars (e.g.
+# A composition maps the columns' values to one value through +, -, * and
+# unary -, with int or Fp constants: in the prover it is called once, over
+# the tracer's stand-ins (``composition.trace``), and its program runs at
+# every point; in the verifier over host Fp.  Two calling conventions, as
+# in the JAX package: composition(cols) when there are no aux scalars (e.g.
 # identity_composition), composition(cols, aux) otherwise - the randoms and
-# constraint masks arrive as FA values of (4,) device tensors packed once
-# per proof, not as constants baked into the composition.
-Composition = Callable[..., ops.FA]
+# constraint masks are aux scalars packed once per proof, not constants
+# baked into the composition.
+Composition = Callable[..., object]
 
 
-def _call_comp(composition, cols, aux):
-    return composition(cols) if aux is None else composition(cols, aux)
-
-
-def identity_composition(cols: Sequence[ops.FA]) -> ops.FA:
+def identity_composition(cols: Sequence) -> object:
     """The PCS composition: x -> x[0] (reference multilinear_pcs.rs:56)."""
     return cols[0]
 
@@ -107,50 +105,19 @@ def _pack_tables_kernel(cols: torch.Tensor, subs) -> torch.Tensor:
     return data
 
 
-def _extensions(data: torch.Tensor, total_degree: int):
-    """Linear extensions of the packed table (w+1, h, 4) at X = 1..d, each
-    (w+1, h/2, 4), yielded one at a time so that a caller holds one point's
-    temporaries at once.  Incremental form ext(X+1) = ext(X) + (hi - lo): no
-    field multiplies."""
-    off = data.shape[1] // 2
-    lo, hi = data[:, :off], data[:, off:]
-    yield hi
-    if total_degree > 1:
-        diff = ops.sub(hi, lo)
-        cur = hi
-        for _ in range(2, total_degree + 1):
-            cur = ops.add(cur, diff)
-            yield cur
-
-
-def _partial_sums_kernel(data: torch.Tensor, total_degree: int, composition: Composition, aux) -> torch.Tensor:
-    """Round polynomial evaluations s(X), X = 1..d, as UNREDUCED int64 limb
-    sums (d, 4): s(X) = sum_i delta_X[i] * composition(cols_X)[i] over the
-    extended rows; the round's Fiat-Shamir kernel reduces them.  The
-    identity composition (the PCS) multiplies the two rows directly; a
-    composition that collapses to a host scalar (a constant Expr) is packed
-    once and read broadcast."""
-    w = data.shape[0] - 1
-    if data.shape[1] // 2 >= 1 << 31:
+def _partial_sums_kernel(data: torch.Tensor) -> torch.Tensor:
+    """The PCS round's s(1), s(2) as UNREDUCED int64 limb sums (2, 4): s(X) =
+    sum_i delta_X[i] * p_X[i] over the linear extensions X = 1, 2 of the
+    packed (2, h, 4) table's halves (the identity composition); the round's
+    Fiat-Shamir kernel reduces them."""
+    w, off = data.shape[0] - 1, data.shape[1] // 2
+    if off >= 1 << 31:
         raise ValueError("a round's unreduced limb sums stay exact for fewer than 2^31 rows")
-    sums = []
-    for e in _extensions(data, total_degree):
-        if composition is identity_composition:
-            comp = e[0]
-        else:
-            comp = _call_comp(composition, [ops.FA(e[j]) for j in range(w)], aux)
-            comp = comp.a if isinstance(comp, ops.FA) else ops.packed_scalar(Fp(comp).v, data.device)
-        sums.append(ops.sum_limbs(ops.mul(e[w], comp), dim=0))
-        del e, comp
-    return torch.stack(sums)
-
-
-def _fold_kernel(data: torch.Tensor, r_limbs: torch.Tensor) -> torch.Tensor:
-    """Fold the packed table with challenge r: lo + r*(hi - lo); ONE multiply
-    covers every column and the delta row."""
-    off = data.shape[1] // 2
     lo, hi = data[:, :off], data[:, off:]
-    return ops.add(lo, ops.mul(ops.sub(hi, lo), r_limbs))
+    sums = [ops.sum_limbs(ops.mul(hi[w], hi[0]), dim=0)]
+    two = ops.add(hi, ops.sub(hi, lo))  # ext(2) = hi + (hi - lo)
+    sums.append(ops.sum_limbs(ops.mul(two[w], two[0]), dim=0))
+    return torch.stack(sums)
 
 
 @lru_cache(maxsize=16)
@@ -181,7 +148,7 @@ class SumcheckTables:
     columns and the delta table (w = 1 for the PCS)."""
 
     def __init__(self, data: torch.Tensor, height: int, debug_checks: bool = False):
-        self.data = data
+        self.data = data.contiguous()  # as the round kernels read it
         self.height = height
         self.debug_checks = debug_checks
 
@@ -213,11 +180,20 @@ class SumcheckTables:
         data = _pack_tables_kernel(trace_columns, delta_subtables(row_challenges, trace_columns.device))
         return SumcheckTables(data, height, debug_checks)
 
-    def partial_sums(self, composition: Composition = identity_composition, total_degree: int = PCS_DEGREE,
-                     aux=None) -> torch.Tensor:
-        """(d, 4) int64 device tensor: the unreduced limb sums of s(1)..s(d)
-        of this round's polynomial.  The defaults are the PCS's."""
-        return _partial_sums_kernel(self.data, total_degree, composition, aux)
+    def partial_sums(self) -> torch.Tensor:
+        """The PCS round's (2, 4) int64 device tensor: the unreduced limb
+        sums of s(1), s(2)."""
+        return _partial_sums_kernel(self.data)
+
+    def program_sums(self, program: cmp.Program, aux: Optional[torch.Tensor], degree: int,
+                     out: torch.Tensor) -> torch.Tensor:
+        """A constraint round's sums of s(1)..s(degree): ``program`` (the
+        composition's, ``composition.trace``) run over the table, its limb
+        sums added into ``out``, a zeroed (degree, 4) int64 row.  Callers
+        read the returned tensor only: here it is ``out``, but a rank's
+        tables return the sums over the ranks, a new tensor."""
+        cmp.round_sums(self.data, program, aux, degree, out)
+        return out
 
     def gathered(self) -> torch.Tensor:
         """The whole packed table in natural order (a sharded table gathers
@@ -226,36 +202,12 @@ class SumcheckTables:
 
     def fold(self, r: torch.Tensor) -> None:
         """Fold with the challenge r, a (4,) field element on the tables'
-        device (where the round's Fiat-Shamir kernel drew it)."""
-        self.data = _fold_kernel(self.data, r)
-        self.height >>= 1
-        if self.debug_checks and not ops.is_canonical(self.data):
-            raise ValueError("non-canonical field element in folded sumcheck table")
-
-    def fused_program(self, composition: Composition, total_degree: int, n_aux: Optional[int]):
-        """The composition's program (``composition.trace``) if these tables
-        take the fused round - ``composition.round_sums`` and
-        :meth:`fold_fused` in place of :meth:`partial_sums` and :meth:`fold` -,
-        else None: tables that bring their own ``partial_sums`` or ``fold``
-        (a rank's of a sharded prove, whose sums cross ranks) keep them, and
-        so does a program with more slots than a block of the card holds."""
-        cls = type(self)
-        if cls.partial_sums is not SumcheckTables.partial_sums or cls.fold is not SumcheckTables.fold:
-            return None
-        program = cmp.trace(composition, self.data.shape[0] - 1, n_aux)
-        limit = cmp.max_slots(self.data.device)
-        if limit is not None and program.slots(total_degree) > limit:
-            return None
-        self.data = self.data.contiguous()
-        return program
-
-    def fold_fused(self, r: torch.Tensor) -> None:
-        """:meth:`fold` in one ``sumcheck_fold`` launch, for the fused round."""
+        device (where the round's Fiat-Shamir kernel drew it): one
+        ``sumcheck_fold`` launch."""
         self.data = cmp.round_fold(self.data, r)
         self.height >>= 1
         if self.debug_checks and not ops.is_canonical(self.data):
             raise ValueError("non-canonical field element in folded sumcheck table")
-        stats.bump("sumcheck_rounds_fused")
 
     def compute_all_rounds(self, composition: Composition, composition_degree: int, transcript: Transcript,
                            sum_value: Fp, aux=None):
@@ -273,21 +225,20 @@ class DeviceSumcheckRounds:
     """The standalone sumcheck's rounds on the tables' device, and what the
     host has not replayed yet (the counterpart of ``pcs.DeviceRounds``).
 
-    The host transcript's state hops to the device once, here.  A round is
-    the partial sums, ONE ``sumcheck_round_scalars`` launch (reduce,
-    interpolate through V^-1, absorb, draw r into the round's slot of
-    ``randoms``, next sum) and the table fold, which reads r there: nothing
-    is copied to or from the host.  Tables that take the fused round
-    (:meth:`SumcheckTables.fused_program`: one device's) run the
-    composition's program in one ``sumcheck_sums`` launch, adding into the
-    round's zeroed row of ``sums``, and fold in one ``sumcheck_fold``
-    launch, so three launches a round; other tables take their own
-    ``partial_sums`` and ``fold``.  ``replay`` makes the one copy (the
-    rounds' coefficients and randoms, the device's digest, and after the last
-    round the folded columns); the host absorbs the same coefficients and
-    draws the challenges into its own transcript, and must reach the same
-    randoms and the same digest.  After the last round the tables hold one
-    row, each column's MLE at the randoms: ``outputs``.
+    The host transcript's state hops to the device once, here, and the
+    composition's program and aux scalars are on the device before the
+    first round.  A round is the tables' sums of the program
+    (:meth:`SumcheckTables.program_sums`, into the round's zeroed row of
+    ``sums``; a rank's tables add them over the ranks), ONE
+    ``sumcheck_round_scalars`` launch (reduce, interpolate through V^-1,
+    absorb, draw r into the round's slot of ``randoms``, next sum) and the
+    table fold, which reads r there: nothing is copied to or from the host.
+    ``replay`` makes the one copy (the rounds' coefficients and randoms, the
+    device's digest, and after the last round the folded columns); the host
+    absorbs the same coefficients and draws the challenges into its own
+    transcript, and must reach the same randoms and the same digest.  After
+    the last round the tables hold one row, each column's MLE at the
+    randoms: ``outputs``.
 
     ``rounds_done``: the rounds a resumed session ran before it was saved (at
     a round boundary, all replayed); ``tables`` are then the tables they
@@ -305,7 +256,6 @@ class DeviceSumcheckRounds:
             raise ValueError(f"total degree {total_degree}: a round on {device} takes degree {limit} at most")
         self.transcript = transcript
         self.tables = tables
-        self.composition = composition
         self.total_degree = total_degree
         self.n_rounds = rounds_done + tables.height.bit_length() - 1
         # the copies to the device go through pinned memory and do not make
@@ -313,18 +263,14 @@ class DeviceSumcheckRounds:
         self.state = dtr.state_from_host(transcript, device)
         self.prev = limbs.pack_int(Fp(previous_sum).v, device=device)
         self.vinv = vandermonde_inv(total_degree + 1, device)
-        self.aux_table = None if aux is None else limbs.pack_ints(list(aux), device=device)
-        self.aux = None if aux is None else [ops.FA(a) for a in self.aux_table]
-        self.program = tables.fused_program(composition, total_degree,
-                                            None if aux is None else len(self.aux_table))
-        if self.program is not None:
-            self.program.on(device)  # its one copy to the device, made before the rounds
+        self.aux = None if aux is None else limbs.pack_ints(list(aux), device=device)
+        self.program = cmp.trace(composition, tables.data.shape[0] - 1, None if aux is None else len(aux))
+        self.program.on(device)  # its one copy to the device, made before the rounds
         self.coeffs = torch.empty((self.n_rounds, total_degree, 4), dtype=torch.int32, device=device)
         self.randoms = torch.empty((self.n_rounds, 4), dtype=torch.int32, device=device)
         self.digest = torch.empty(8, dtype=torch.int32, device=device)
-        # the fused round's sums, a zeroed row a round (the kernel adds into it)
-        self.sums = None if self.program is None else \
-            torch.zeros((self.n_rounds, total_degree, 4), dtype=torch.int64, device=device)
+        # a zeroed row of sums a round (the kernel adds into it)
+        self.sums = torch.zeros((self.n_rounds, total_degree, 4), dtype=torch.int64, device=device)
         self.k = rounds_done  # rounds launched
         self.replayed = rounds_done  # rounds the host transcript has absorbed
         self.outputs: Optional[List[Fp]] = None  # the columns at the randoms, after the last round
@@ -336,17 +282,10 @@ class DeviceSumcheckRounds:
         done = 0
         while self.k < end:
             with span("sumcheck_round"):
-                if self.program is None:
-                    sums = self.tables.partial_sums(self.composition, self.total_degree, self.aux)
-                else:
-                    sums = self.sums[self.k]
-                    cmp.round_sums(self.tables.data, self.program, self.aux_table, self.total_degree, sums)
+                sums = self.tables.program_sums(self.program, self.aux, self.total_degree, self.sums[self.k])
                 dtr.sumcheck_round_scalars(self.state, self.prev, self.digest, sums, self.vinv,
                                            self.coeffs[self.k], self.randoms[self.k])
-                if self.program is None:
-                    self.tables.fold(self.randoms[self.k])
-                else:
-                    self.tables.fold_fused(self.randoms[self.k])
+                self.tables.fold(self.randoms[self.k])
             self.k += 1
             done += 1
         return done

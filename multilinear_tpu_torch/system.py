@@ -3,10 +3,12 @@ System, SnarkProof, SnarkProverSession.
 
 Capability parity with reference src/constraint_system/{constraints,trace,
 system}.rs and with the JAX package's ``system.py``.  A constraint is a plain
-Python callable over operator-overloading values, so the SAME expression
-runs (a) over field tensors (``ops.FA``) inside the sumcheck's partial sums
-and (b) over host ``Fp`` scalars in the verifier - the reference's
-``Expr = fn(&[F], &[F]) -> F`` (constraints.rs:3-10).
+Python callable over operator-overloading values (``+``, ``-``, ``*``, unary
+``-``, ``int`` or ``Fp`` constants), so the SAME expression runs (a) over
+the tracer's stand-ins in the prover, once, into the program that the
+sumcheck's rounds run (``composition.trace``), and (b) over host ``Fp``
+scalars in the verifier - the reference's ``Expr = fn(&[F], &[F]) -> F``
+(constraints.rs:3-10).
 
 A SNARK proof is the trace sumcheck over the masked constraints, then a PCS
 opening of the trace columns at the sumcheck point: the plain PCS for one
@@ -50,8 +52,8 @@ from .sumcheck import DeviceSumcheckRounds, SumcheckPoly, SumcheckTables, replay
 from .transcript import Transcript
 from .utils import span
 
-# An Expr takes (values, randoms) and returns a value; polymorphic over
-# ops.FA tensors and host Fp scalars.
+# An Expr takes (values, randoms) and returns a value; polymorphic over the
+# tracer's stand-ins (the prover) and host Fp scalars (the verifier).
 Expr = Callable[[Sequence, Sequence], object]
 
 
@@ -277,7 +279,7 @@ class System:
         return list(self.challenges.trace) + list(self.constraint_mask)
 
     def evaluate_composition(self, values: Sequence) -> object:
-        """sum_i mask_i * C_i(values, randoms); polymorphic (FA or Fp)."""
+        """sum_i mask_i * C_i(values, randoms) over host Fp values."""
         if len(values) != self.layout.columns:
             raise SnarkError(f"expected {self.layout.columns} column values, got {len(values)}")
         return self.constraints.composition_fn()(list(values), self.aux)

@@ -89,9 +89,8 @@ def test_every_kernel_source_and_binding_is_present():
         "mul", "addsub", "sha256_words", "sha256_leaves", "merkle_levels", "butterfly", "butterfly2",
         "twiddle_mul3", "kron", "zm", "fold", "fold_commit", "round_scalars", "open_gather",
         "sumcheck_round",
-        # the replaced kernels, kept for the smoke script's comparison of
-        # routes, and the probe kernels whose instructions it counts
-        "prev_sha256_words", "prev_zm", "prev_kron", "prev_round_scalars", "opcount",
+        # the probe kernels whose instructions the smoke script counts
+        "opcount",
     } == set(_build.SOURCES)
     for symbol in ("mlt_sha256_messages", "mlt_sha256_leaves", "mlt_merkle_levels", "mlt_zm_tiles",
                    "mlt_kron_tiles", "mlt_round_scalars", "mlt_sumcheck_round_scalars", "mlt_open_gather",
@@ -101,18 +100,20 @@ def test_every_kernel_source_and_binding_is_present():
 
 def test_every_wrapper_names_a_bound_c_function():
     """Each ``mlt_*`` name a wrapper asks the loader for is in the binding
-    table, and each bound function is defined by its source."""
+    table, and each bound function is defined by its source (the smoke
+    script's own wrapper of the tensor product's parts included)."""
     from multilinear_tpu_torch import _build
 
     used = set()
+    files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, fs in os.walk(PKG):
-        for f in fs:
-            if f.endswith(".py") and f != "_build.py":
-                text = open(os.path.join(d, f)).read()
-                used |= set(re.findall(r'"(mlt_\w+)"', text))
-                # names built as "mlt_" + kernel from the launch-count keys
-                if '"mlt_" + kernel' in text:
-                    used |= {"mlt_mul", "mlt_add", "mlt_sub"}
+        files += [os.path.join(d, f) for f in fs if f.endswith(".py") and f != "_build.py"]
+    for path in files:
+        text = open(path).read()
+        used |= set(re.findall(r'"(mlt_\w+)"', text))
+        # names built as "mlt_" + kernel from the launch-count keys
+        if '"mlt_" + kernel' in text:
+            used |= {"mlt_mul", "mlt_add", "mlt_sub"}
     assert used == set(_build.KERNELS), (used, set(_build.KERNELS))
     for symbol, (stem, _) in _build.KERNELS.items():
         src = open(os.path.join(_build.CSRC, stem + ".cu")).read()

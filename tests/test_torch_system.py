@@ -14,6 +14,7 @@ import hashlib
 import json
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -115,45 +116,62 @@ def _fps(t: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
-# FA against host Fp
+# one expression: its program (the prover) against host Fp (the verifier)
 # ---------------------------------------------------------------------------
 
 _FA_OPS = {
-    "fa + fa": (lambda a, b: a + b, lambda a, b: a + b),
-    "fa - fa": (lambda a, b: a - b, lambda a, b: a - b),
-    "fa * fa": (lambda a, b: a * b, lambda a, b: a * b),
-    "-fa": (lambda a, b: -a, lambda a, b: -a),
-    "Fp * fa": (lambda a, b: Fp(K) * a, lambda a, b: Fp(K) * a),
-    "int - fa": (lambda a, b: 5 - a, lambda a, b: 5 - a),
-    "fa + int, fa * Fp": (lambda a, b: (a + (P - 1)) * Fp(2**64), lambda a, b: (a + (P - 1)) * Fp(2**64)),
-    "negative int * fa": (lambda a, b: -3 * a, lambda a, b: -3 * a),
-    "expression": (lambda a, b: a * a + b * b - (a - b) * 7, lambda a, b: a * a + b * b - (a - b) * 7),
+    "fa + fa": lambda a, b: a + b,
+    "fa - fa": lambda a, b: a - b,
+    "fa * fa": lambda a, b: a * b,
+    "-fa": lambda a, b: -a,
+    "Fp * fa": lambda a, b: Fp(K) * a,
+    "int - fa": lambda a, b: 5 - a,
+    "fa + int, fa * Fp": lambda a, b: (a + (P - 1)) * Fp(2**64),
+    "negative int * fa": lambda a, b: -3 * a,
+    "expression": lambda a, b: a * a + b * b - (a - b) * 7,
 }
+# the field's add, sub and mul, which run the plain versions on a CPU tensor
+_PRIMS = (ops.add, ops.sub, ops.mul)
+
+
+def _run_elementwise(program: cmp.Program, columns) -> torch.Tensor:
+    """``program`` run by ``composition.evaluate`` over whole columns of
+    values (each element a point), its constants read from the program
+    packed on the columns' device."""
+    on = program.on(columns[0].device)
+    consts = on[cmp.HEADER_WORDS : cmp.HEADER_WORDS + 4 * len(program.consts)].view(-1, 4)
+    return cmp.evaluate(program, [columns[c] for c in program.cols], list(consts), _PRIMS)
 
 
 @pytest.mark.parametrize("op", sorted(_FA_OPS))
 def test_fa_matches_host_fp(op):
-    """One expression over FA tensors (the prover) and over host Fp (the
+    """One expression traced to a program and run elementwise by
+    ``composition.evaluate`` (the prover), and called over host Fp (the
     verifier): equal element by element, on random values and the edges."""
     rng = np.random.default_rng(11)
     xs = EDGES + [int.from_bytes(rng.bytes(16), "little") % P for _ in range(40)]
     ys = list(reversed(EDGES)) + [int.from_bytes(rng.bytes(16), "little") % P for _ in range(40)]
-    fa_fn, fp_fn = _FA_OPS[op]
-    got = fa_fn(ops.FA(limbs.pack_ints(xs)), ops.FA(limbs.pack_ints(ys)))
-    assert isinstance(got, ops.FA)
-    assert _fps(got.a) == [fp_fn(Fp(x), Fp(y)).v for x, y in zip(xs, ys)]
+    fn = _FA_OPS[op]
+    program = cmp.trace(lambda cols: fn(cols[0], cols[1]), 2, None)
+    got = _run_elementwise(program, [limbs.pack_ints(xs), limbs.pack_ints(ys)])
+    assert got.shape == (len(xs), 4)
+    assert _fps(got) == [fn(Fp(x), Fp(y)).v for x, y in zip(xs, ys)]
 
 
 def test_fa_constant_is_packed_once_and_read_broadcast():
-    a = ops.FA(limbs.pack_ints(list(range(8))))
-    before = ops.packed_scalar.cache_info().misses
-    for _ in range(3):
-        b = a * 1234567
-    assert ops.packed_scalar.cache_info().misses - before <= 1
-    assert ops.packed_scalar(1234567, torch.device("cpu")).shape == (4,)
-    assert _fps(b.a) == [i * 1234567 % P for i in range(8)]
+    """A constant is packed once into its program, however often the
+    composition uses it, and the program is copied to a device once
+    (``Program.on``); every point reads the constant broadcast.  An operand
+    outside the field's contract raises."""
+    program = cmp.trace(lambda cols: cols[0] * 1234567 + 1234567 * cols[0] - 1234567, 1, None)
+    assert program.consts == (1234567,)
+    on = program.on("cpu")
+    assert program.on(torch.device("cpu")) is on
+    assert _fps(on[cmp.HEADER_WORDS : cmp.HEADER_WORDS + 4]) == [1234567]
+    got = _run_elementwise(program, [limbs.pack_ints(list(range(8)))])
+    assert _fps(got) == [(2 * i * 1234567 - 1234567) % P for i in range(8)]
     with pytest.raises(TypeError):
-        a * 1.5
+        cmp.trace(lambda cols: cols[0] * 1.5, 1, None)
 
 
 # ---------------------------------------------------------------------------
@@ -201,14 +219,15 @@ def test_vandermonde_inverse_matches_jax(n):
 
 
 # ---------------------------------------------------------------------------
-# the general partial sums
+# the constraint round's sums
 # ---------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("name", ["trivial", "zero", "pythagorean", "randoms", "cubic", "constant"])
 def test_partial_sums_match_jax_host(name):
-    """The unreduced limb sums of s(1)..s(d), reduced on the host, equal the
-    JAX package's host partial sums for the same tables and aux."""
+    """The tables' program sums (the composition traced once, then run at
+    every point), reduced on the host, equal the JAX package's host partial
+    sums for the same tables and aux."""
     if name == "constant":  # an aux-free composition that is a host scalar
         constraints, degree, width, randoms = None, 0, 2, 0
         jcomp, pcomp, jaux, paux = (lambda cols: JFp(9)), (lambda cols: Fp(9)), None, None
@@ -219,7 +238,7 @@ def test_partial_sums_match_jax_host(name):
         pcomp = psys.ConstraintSet(pcs_, degree).composition_fn()
         aux = [int.from_bytes(bytes([5 + i]) * 16, "little") % P for i in range(randoms + len(jcs))]
         jaux = [JFp(v) for v in aux]
-        paux = [ops.FA(a) for a in limbs.pack_ints(aux)]
+        paux = limbs.pack_ints(aux)
     log_n = 5
     cols = _random_columns(width, log_n, 99 + width)
     flat = [v for c in cols for v in c]
@@ -228,73 +247,94 @@ def test_partial_sums_match_jax_host(name):
                                       jnp.asarray(jlimbs.pack_ints(flat, shape=(width, 1 << log_n))))
     pt = psc.SumcheckTables.for_trace([Fp(v) for v in row_ch], limbs.pack_ints(flat, shape=(width, 1 << log_n)))
     want = jt._partial_sums_host(jcomp, degree + 1, jaux)
-    got = pt.partial_sums(pcomp, degree + 1, paux)
+    program = cmp.trace(pcomp, width, None if paux is None else len(paux))
+    got = pt.program_sums(program, paux, degree + 1, torch.zeros((degree + 1, 4), dtype=torch.int64))
     assert got.dtype == torch.int64 and got.shape == (degree + 1, 4)
     assert [ops.limb_sums_to_int(lanes) for lanes in got.tolist()] == [int(v) % P for v in want]
 
 
 # ---------------------------------------------------------------------------
-# the composition traced to a program, and the fused round
+# the composition traced to a program, and the round that runs it
 # ---------------------------------------------------------------------------
 
 
-def _trace_tables(width: int, log_n: int, seed: int) -> psc.SumcheckTables:
+def _both_tables(width: int, log_n: int, seed: int):
+    """The same random trace tables in both packages: (JAX, port).  At
+    these heights the JAX package keeps its tables on the host."""
     flat = [v for c in _random_columns(width, log_n, seed) for v in c]
     row_ch = [int.from_bytes(bytes([9 + i]) * 16, "little") % P for i in range(log_n)]
-    return psc.SumcheckTables.for_trace([Fp(v) for v in row_ch], limbs.pack_ints(flat, shape=(width, 1 << log_n)))
+    jt = jsc.SumcheckTables.for_trace([JFp(v) for v in row_ch],
+                                      jnp.asarray(jlimbs.pack_ints(flat, shape=(width, 1 << log_n))))
+    pt = psc.SumcheckTables.for_trace([Fp(v) for v in row_ch], limbs.pack_ints(flat, shape=(width, 1 << log_n)))
+    return jt, pt
 
 
-def _aux_table(n: int) -> torch.Tensor:
-    return limbs.pack_ints([int.from_bytes(bytes([5 + i]) * 16, "little") % P for i in range(n)])
+def _aux_ints(n: int):
+    return [int.from_bytes(bytes([5 + i]) * 16, "little") % P for i in range(n)]
+
+
+def _program_sums(pt: psc.SumcheckTables, comp, width: int, aux, degree: int):
+    """The port's sums of a round: ``comp`` traced once, run by the tables'
+    route, reduced on the host."""
+    program = cmp.trace(comp, width, None if aux is None else len(aux))
+    assert program is cmp.trace(comp, width, None if aux is None else len(aux))  # traced once
+    got = pt.program_sums(program, None if aux is None else limbs.pack_ints(aux), degree,
+                          torch.zeros((degree, 4), dtype=torch.int64))
+    return [ops.limb_sums_to_int(lanes) for lanes in got.tolist()]
 
 
 @pytest.mark.parametrize("name", ["trivial", "zero", "pythagorean", "randoms", "cubic", "constant"])
 def test_traced_program_equals_the_eager_composition(name):
-    """The composition traced once, run by the plain version of
-    ``sumcheck_sums`` over random tables, gives the eager composition's
-    unreduced sums (``pythagorean`` is the benchmark's euclid4 set;
+    """The composition traced once and run by the plain version of
+    ``sumcheck_sums`` over random tables gives the sums of the JAX
+    package's device partial sums, which call the same composition at
+    every point (``pythagorean`` is the benchmark's euclid4 set;
     ``constant`` returns a host scalar)."""
     if name == "constant":
-        comp, degree, width, aux = (lambda cols: Fp(9)), 1, 2, None
+        jcomp, comp, degree, width, aux = (lambda cols: JFp(9)), (lambda cols: Fp(9)), 1, 2, None
     else:
-        cs, degree, width, randoms = _constraint_sets(Fp)[name]
-        comp = psys.ConstraintSet(cs, degree).composition_fn()
-        aux = _aux_table(randoms + len(cs))
-    tables = _trace_tables(width, 5, 199 + width)
-    program = cmp.trace(comp, width, None if aux is None else len(aux))
-    assert program is cmp.trace(comp, width, None if aux is None else len(aux))  # traced once
-    got = torch.zeros((degree + 1, 4), dtype=torch.int64)
-    cmp.round_sums(tables.data, program, aux, degree + 1, got)
-    want = psc._partial_sums_kernel(tables.data, degree + 1, comp, None if aux is None else [ops.FA(a) for a in aux])
-    assert torch.equal(got, want)
+        jcs, degree, width, randoms = _constraint_sets(JFp)[name]
+        jcomp = jsys.ConstraintSet(jcs, degree).composition_fn()
+        comp = psys.ConstraintSet(_constraint_sets(Fp)[name][0], degree).composition_fn()
+        aux = _aux_ints(randoms + len(jcs))
+    _, pt = _both_tables(width, 5, 199 + width)
+    jdata = jnp.asarray(limbs.to_jax_limbs(pt.data))
+    with jax.disable_jit():  # op by op: no XLA program of the whole composition is compiled
+        want = jsc._partial_sums_kernel(jdata, jsc._aux_limbs_arr(None if aux is None else [JFp(v) for v in aux]),
+                                        degree + 1, jcomp)
+    got = _program_sums(pt, comp, width, aux, degree + 1)
+    assert got == [int(v) for v in jlimbs.unpack_ints(np.asarray(want))]
 
 
-def _every_instruction(e: int):
+def _every_instruction(e: int, fp=Fp):
     """A composition of degree e in column 0 that reads columns, aux
-    scalars, int and Fp constants through +, -, * and unary -."""
+    scalars, int and ``fp`` constants through +, -, * and unary -."""
 
     def comp(cols, aux):
         acc = cols[0]
         for _ in range(e - 1):
             acc = acc * cols[0]
-        return (acc - 3 * cols[1]) * aux[0] + (-cols[2]) * Fp(K) + aux[1] * aux[0] - 7 + (5 - cols[1])
+        return (acc - 3 * cols[1]) * aux[0] + (-cols[2]) * fp(K) + aux[1] * aux[0] - 7 + (5 - cols[1])
 
     return comp
 
 
 @pytest.mark.parametrize("log_n,total_degree", [(4, 1), (6, 2), (10, 3), (5, 18)])
 def test_fused_round_equals_the_eager_round(log_n, total_degree):
-    """The fused round's plain versions - the program's sums, then the fold -
-    give ``_partial_sums_kernel`` and ``_fold_kernel``'s bytes; the
+    """A round of the tables - the program's sums, then ``tables.fold`` -
+    gives the JAX package's partial sums and ``_fold_kernel``'s bytes; the
     18-degree case's points take five passes of the kernel's four."""
-    comp = _every_instruction(max(total_degree - 1, 1))
-    tables, aux = _trace_tables(3, log_n, 300 + log_n), _aux_table(2)
-    program = cmp.trace(comp, 3, 2)
-    got = torch.zeros((total_degree, 4), dtype=torch.int64)
-    cmp.round_sums(tables.data, program, aux, total_degree, got)
-    assert torch.equal(got, psc._partial_sums_kernel(tables.data, total_degree, comp, [ops.FA(a) for a in aux]))
-    r = _aux_table(3)[2]
-    assert torch.equal(cmp.round_fold(tables.data, r), psc._fold_kernel(tables.data, r))
+    e = max(total_degree - 1, 1)
+    jt, pt = _both_tables(3, log_n, 300 + log_n)
+    jdata = jnp.asarray(limbs.to_jax_limbs(pt.data))
+    aux = _aux_ints(2)
+    want = jt._partial_sums_host(_every_instruction(e, JFp), total_degree, [JFp(v) for v in aux])
+    assert _program_sums(pt, _every_instruction(e), 3, aux, total_degree) == [int(v) % P for v in want]
+    r = _aux_ints(3)[2]
+    pt.fold(limbs.pack_int(r))
+    assert pt.height == 1 << (log_n - 1)
+    assert np.array_equal(limbs.to_jax_limbs(pt.data),
+                          np.asarray(jsc._fold_kernel(jdata, jnp.asarray(jlimbs.pack_scalar(JFp(r))))))
 
 
 def test_program_slots_are_reused():
@@ -310,14 +350,14 @@ def test_program_slots_either_side_of_the_default_shared_memory(expr, slots):
     """A masked degree-2 constraint over 5 columns holds 11 or 12 slots at
     d = 3: at 256 threads 44 or 48 KiB of dynamic shared memory beside the
     kernel's 1 KiB of static, either side of the default 48 KiB (the card's
-    smoke runs both); the plain round still equals the eager one."""
+    smoke runs both); the round's sums equal the JAX package's host partial
+    sums."""
     comp = psys.ConstraintSet([expr], 2).composition_fn()
-    program = cmp.trace(comp, 5, 1)
-    assert program.slots(3) == slots
-    tables, aux = _trace_tables(5, 4, 500 + slots), _aux_table(1)
-    got = torch.zeros((3, 4), dtype=torch.int64)
-    cmp.round_sums(tables.data, program, aux, 3, got)
-    assert torch.equal(got, psc._partial_sums_kernel(tables.data, 3, comp, [ops.FA(a) for a in aux]))
+    assert cmp.trace(comp, 5, 1).slots(3) == slots
+    jt, pt = _both_tables(5, 4, 500 + slots)
+    aux = _aux_ints(1)
+    want = jt._partial_sums_host(jsys.ConstraintSet([expr], 2).composition_fn(), 3, [JFp(v) for v in aux])
+    assert _program_sums(pt, comp, 5, aux, 3) == [int(v) % P for v in want]
 
 
 @pytest.mark.parametrize("expr", ["power", "division", "tensor", "returns None"])
@@ -330,11 +370,15 @@ def test_a_composition_outside_the_contract_raises(expr):
 
 @pytest.mark.parametrize("name,slot_limit", [("pythagorean", None), ("cubic", None), ("pythagorean", 3)])
 def test_fused_rounds_are_counted(monkeypatch, name, slot_limit):
-    """``sumcheck_rounds_fused`` reads one a round of one device's tables;
-    a program with more slots than the device's limit takes the eager
-    round, to the same polynomials."""
+    """``sumcheck_rounds_fused`` reads one a round whose program fits the
+    device's limit; a program with more slots than the limit (forced to 0
+    for the second prover) takes the loop over the field's add, sub and mul
+    instead, to the same polynomials."""
     _, _, width, _ = _constraint_sets(Fp)[name]
     log_n = 4
+    loops = []
+    sums_loop = cmp._sums_loop
+    monkeypatch.setattr(cmp, "_sums_loop", lambda *args: loops.append(args[-1]) or sums_loop(*args))
     pt = Transcript()
     _, pprover = _systems(name, _rows(name, width, log_n), width, (JTranscript(), pt))
     monkeypatch.setattr(cmp, "max_slots", lambda device: slot_limit)
@@ -343,8 +387,10 @@ def test_fused_rounds_are_counted(monkeypatch, name, slot_limit):
     assert stats.counts().get("sumcheck_rounds_fused", 0) == (log_n if slot_limit is None else 0)
     qt = Transcript()
     _, qprover = _systems(name, _rows(name, width, log_n), width, (JTranscript(), qt))
-    monkeypatch.setattr(cmp, "max_slots", lambda device: 0)  # the eager round
+    monkeypatch.setattr(cmp, "max_slots", lambda device: 0)  # wider than a block
+    del loops[:]
     want, _ = qprover.compute_sumcheck_polynomials(qt, qprover.build_tables(), Fp(0))
+    assert loops == [(ops.add, ops.sub, ops.mul)] * log_n
     assert [[c.v for c in p.nonzero_coeffs] for p in pols] == [[c.v for c in p.nonzero_coeffs] for p in want]
 
 
