@@ -65,7 +65,7 @@ from multilinear_tpu_torch.field.scalar import Fp, P, pow2_generator
 from multilinear_tpu_torch.fri import FriError
 from multilinear_tpu_torch.mle import evaluate_evals_host
 from multilinear_tpu_torch.ntt import clear_caches, inv_gen_pows
-from multilinear_tpu_torch.pcs import PCSProof, PCSProverSession
+from multilinear_tpu_torch.pcs import IDENTITY, PCSProof, PCSProverSession
 from multilinear_tpu_torch.serialize import (
     batched_pcs_proof_from_bytes,
     batched_pcs_proof_to_bytes,
@@ -915,12 +915,27 @@ def sumcheck_round_cases(dev, rng, main: dict) -> list:
         del data
         torch.cuda.empty_cache()
     # the PCS's tables (w = 1) at their first round: the 2^24 PCS's and the
-    # 10 x 2^22 batched PCS's random combination of its polynomials
+    # 10 x 2^22 batched PCS's random combination of its polynomials; the
+    # 2^24 PCS's sums too, the identity program at d = 2
     for label, log_h in ((f"pcs 2^{PCS_LOG_SIZES[-1]}, first round", PCS_LOG_SIZES[-1]),
                          (f"batched pcs {BATCH_POLYS} x 2^{BATCHED_LOG_SIZES[-1]}, first round",
                           BATCHED_LOG_SIZES[-1])):
         data = random_field(rng, (2, 1 << log_h), dev)
         r = full_random_field(rng, (4,), dev)[0]
+        if log_h == PCS_LOG_SIZES[-1]:
+            def sums(fn):
+                out = torch.zeros((2, 4), dtype=torch.int64, device=dev)
+                fn(data, IDENTITY, None, 2, out)
+                return out
+
+            table_bytes = 16 * 2 * (1 << log_h)
+            row = check_kernel("sumcheck_sums", f"the identity program, {label}, d = 2",
+                               lambda: sums(cmp.round_sums), lambda: sums(cmp.round_sums_plain), table_bytes,
+                               program_ops(IDENTITY, 2) * (1 << (log_h - 1)),
+                               [[2, 1 << log_h, 4], [2, 4], ["slots", IDENTITY.slots(2)]], True)
+            row["bytes_bound_share"] = table_bytes / PEAK_BYTES_PER_S * 1e3 / row["kernel_ms"]
+            rows.append(row)
+            main[f"sumcheck_sums/the identity program, {label}"] = row
         row = check_kernel("sumcheck_fold", label, lambda: cmp.round_fold(data, r),
                            lambda: cmp.round_fold_plain(data, r), 16 * 2 * (1 << log_h) * 3 // 2,
                            (OPS["mul"] + OPS["add"] + OPS["sub"]) * 2 * (1 << (log_h - 1)), [[2, 1 << log_h, 4]],
@@ -1409,33 +1424,62 @@ def timed_prove(prove, to_bytes, from_bytes) -> dict:
 MAX_D2H = {"pcs": 2, "batched_pcs": 3, "snark": 1}
 
 
-def rounds_without_sync(session, to_bytes, want_sha256: str) -> dict:
-    """Drive a session whose rounds run under
+# device operations a PCS round may run, PyTorch's own included: the sums,
+# the round's scalars, the table fold, the codeword's fold and leaf hashes,
+# and about 1.5 Merkle level launches
+MAX_PCS_ROUND_OPS = 7
+
+
+def rounds_without_sync(make_session, to_bytes, want_sha256: str) -> dict:
+    """Drive a session (``make_session()``) whose rounds run under
     ``torch.cuda.set_sync_debug_mode("error")``: any call that makes the host
-    wait for the card inside ``launch_rounds`` raises.  The copy that ends the
-    rounds and the queries run after the mode is reset; the proof must be
-    the timed prove's, byte for byte."""
+    wait for the card inside ``launch_rounds`` raises.  The host clock around
+    the rounds is the host's issue time.  The copy that ends the rounds and
+    the queries run after the mode is reset; the proof must be the timed
+    prove's, byte for byte.  Every round's sums must take the kernel route
+    (``sumcheck_rounds_fused``), and a second session's rounds under the
+    profiler must run at most ``MAX_PCS_ROUND_OPS`` operations a round on the
+    card, PyTorch's own included."""
+    session = make_session()
     torch.cuda.synchronize()
     reset_counts()
     torch.cuda.set_sync_debug_mode("error")
     try:
+        t0 = time.perf_counter()
         launched = session.launch_rounds()
+        issue_s = time.perf_counter() - t0
     finally:
         torch.cuda.set_sync_debug_mode(0)
     copies_in_rounds = stats.counts().get("d2h_copies", 0)
+    fused = stats.counts().get("sumcheck_rounds_fused", 0)
+    counted = {k: v for k, v in launch_counts().items() if v}
     session.run_rounds()
     digest = hashlib.sha256(to_bytes(session.finish())).hexdigest()
     if copies_in_rounds or digest != want_sha256:
         raise RuntimeError(f"rounds under the sync check: {copies_in_rounds} copies, proof {digest} "
                            f"against {want_sha256}")
-    return {"sync_debug_mode": "error", "rounds_launched": launched, "d2h_copies_in_rounds": copies_in_rounds,
-            "round_scalars_launches": launch_counts()["round_scalars"], "proof_equals_timed_prove": True}
+    # every operation the card runs in the rounds, the port's kernels and
+    # PyTorch's alike, from the profiler over a second session's rounds
+    session = make_session()
+    rounds, _, ev = traced_rounds(session.launch_rounds)
+    del session
+    device_ops = {e.key: e.count for e in ev if e.key not in SPAN_NAMES}
+    row = {"sync_debug_mode": "error", "rounds_launched": launched, "d2h_copies_in_rounds": copies_in_rounds,
+           "round_scalars_launches": counted.get("round_scalars", 0), "rounds_fused": fused,
+           "counted_launches_in_rounds": counted, "counted_launches_per_round": sum(counted.values()) / launched,
+           "device_ops_in_rounds": device_ops, "device_ops_per_round": sum(device_ops.values()) / rounds,
+           "host_issue_s_per_round": issue_s / launched, "proof_equals_timed_prove": True}
+    if fused != launched or row["device_ops_per_round"] > MAX_PCS_ROUND_OPS:
+        raise RuntimeError(f"PCS rounds: {fused} of {launched} on the kernel route, {row['device_ops_per_round']} "
+                           f"device operations a round (at most {MAX_PCS_ROUND_OPS}): {row}")
+    return row
 
 
 def pcs_phase(dev, log_sizes):
     """PCS prove and verify at each size; the largest is a main path, and
-    its rounds are also run once under the sync check.  Returns the
-    largest proof's SHA-256 and its peak device bytes."""
+    the rounds of each size from 2^20 up are also run once under the sync
+    check (``rounds_without_sync``).  Returns the largest proof's SHA-256 and
+    its peak device bytes."""
     config = ProverConfig(device=str(dev))
     results = []
     for log_n in log_sizes:
@@ -1452,9 +1496,9 @@ def pcs_phase(dev, log_sizes):
         results.append({"log_n": log_n, **res})
         PATH_LAUNCHES[f"pcs 2^{log_n}"] = res["launches"]
         del proof
-        if log_n == log_sizes[-1]:
+        if log_n == log_sizes[-1] or log_n >= 20:
             results[-1]["rounds_without_sync"] = rounds_without_sync(
-                PCSProverSession(point, output, evals, Transcript(), config), pcs_proof_to_bytes,
+                lambda: PCSProverSession(point, output, evals, Transcript(), config), pcs_proof_to_bytes,
                 res["proof_sha256"])
         del evals
         clear_caches()
@@ -1488,7 +1532,7 @@ def batched_pcs_phase(dev, log_sizes) -> str:
         del proof
         if log_n == log_sizes[-1]:
             results[-1]["rounds_without_sync"] = rounds_without_sync(
-                BatchedPCSProverSession(claim, polys, Transcript(), config), batched_pcs_proof_to_bytes,
+                lambda: BatchedPCSProverSession(claim, polys, Transcript(), config), batched_pcs_proof_to_bytes,
                 res["proof_sha256"])
         del polys
         clear_caches()
@@ -1565,9 +1609,9 @@ def snark_rounds_without_sync(kind: str, trace: Trace, config: ProverConfig, wan
     # every operation the card runs in the rounds, the port's kernels and
     # PyTorch's alike, from the profiler over a second session's rounds
     session = SnarkProverSession(Transcript(), *snark_constraints(kind, trace.width), trace, config=config)
-    rounds, _, ev = traced_sumcheck_rounds(session)
+    rounds, _, ev = traced_rounds(session.launch_sumcheck_rounds)
     del session
-    device_ops = {e.key: e.count for e in ev if e.key != "sumcheck_round"}  # not the span's own range
+    device_ops = {e.key: e.count for e in ev if e.key not in SPAN_NAMES}
     row = {"sync_debug_mode": "error", "rounds_launched": launched, "d2h_copies_in_rounds": copies_in_rounds,
            "rounds_fused": fused, "counted_launches_in_rounds": counted,
            "counted_launches_per_round": sum(counted.values()) / launched,
@@ -1663,15 +1707,20 @@ def snark_phase(dev):
     return {r["path"]: r["proof_sha256"] for r in results}, {r["path"]: r["peak_device_bytes"] for r in results}
 
 
-def traced_sumcheck_rounds(session):
-    """A session's sumcheck rounds alone under the profiler: (rounds, wall
-    s, the device's kernels as ``key_averages`` entries)."""
+# the prover's span ranges, which the profiler lists beside the device's kernels
+SPAN_NAMES = ("round", "sumcheck_round")
+
+
+def traced_rounds(launch):
+    """A session's rounds alone under the profiler, ``launch()`` (its
+    ``launch_rounds`` or ``launch_sumcheck_rounds``): (rounds, wall s, the
+    device's kernels as ``key_averages`` entries)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rounds = session.launch_sumcheck_rounds()
+        rounds = launch()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     return rounds, wall, [e for e in prof.key_averages() if e.device_time_total > 0 and
@@ -1970,7 +2019,7 @@ def degree_phase(dev) -> None:
     ok = out[str(dev)] == out["cpu"]
     session = SnarkProverSession(Transcript(), cs, layout, Trace.from_columns([bits], str(dev)),
                                  config=ProverConfig(device=str(dev)))
-    rounds, wall, ev = traced_sumcheck_rounds(session)
+    rounds, wall, ev = traced_rounds(session.launch_sumcheck_rounds)
     del session
     busy = sum(e.device_time_total for e in ev) / 1e6
     kernel = [e for e in ev if "sumcheck_round_scalars" in e.key]
@@ -2338,14 +2387,17 @@ def sharded_phase(dev, pcs_log_n: int, batched_log_n: int, pcs_sha: str, batched
                             launches_per_rank=[sum(row["launches"].values()) for row in rows], group_wall_s=group_s)
                 if kind == "pcs":
                     line["single_rank_peak_device_bytes"] = pcs_peak
-                if kind.startswith("snark_"):
+                if kind in ("pcs", "batched_pcs") or kind.startswith("snark_"):
                     # a rank runs its block's sums as one device does: one
-                    # sumcheck_sums launch a round
+                    # sumcheck_sums launch a PCS round, and a SNARK's one a
+                    # trace-sumcheck round besides
+                    rounds = 2 * log_n if kind.startswith("snark_") else log_n
                     kernel_rounds = [row["launches"]["sumcheck_sums"] for row in rows]
-                    if kernel_rounds != [log_n] * world:
+                    if kernel_rounds != [rounds] * world:
                         raise RuntimeError(f"{label}: sumcheck_sums launches per rank {kernel_rounds}, not one in "
-                                           f"each of the {log_n} rounds")
+                                           f"each of the {rounds} rounds")
                     line["sumcheck_sums_launches_per_rank"] = kernel_rounds
+                if kind.startswith("snark_"):
                     line["single_rank_peak_device_bytes"] = snark_peaks[snark_path(kind)[0]]
                     line["sum_bytes_per_sumcheck_round_rank0"] = sorted(set(rows[0]["sc_sum_bytes"]))
                     line["max_d2h"] = limit

@@ -15,8 +15,8 @@ its lanes to the canonical residue (:func:`canonical_lanes`, exact for any
 lane in [0, 2^63)), and the ranks sum the four 32-bit limbs of those
 residues in int64 lanes: W ranks give lanes below W 2^32, which the round's
 Fiat-Shamir kernel reduces as it reduces a single card's sums.  The row limit
-of one sum (2^31 row pairs, held by ``composition.round_sums`` and by the
-PCS's ``sumcheck._partial_sums_kernel``) is thus a rank's: W ranks take
+of one sum (2^31 row pairs, held by ``composition.round_sums``, which
+every table's sums take, the PCS's included) is thus a rank's: W ranks take
 W 2^32 rows.
 
 **Backends.**  NCCL when each rank has a card of its own; gloo when the

@@ -176,9 +176,6 @@ class ShardedTables(SumcheckTables):
         stats.append(self.counter + "_sum_bytes", stats.counts()["collective_bytes"] - before)
         return sums
 
-    def partial_sums(self) -> torch.Tensor:
-        return self._over_ranks(super().partial_sums)
-
     def program_sums(self, program, aux, degree: int, out: torch.Tensor) -> torch.Tensor:
         return self._over_ranks(super().program_sums, program, aux, degree, out)
 

@@ -17,14 +17,15 @@ The final verifier link: eq(inputs, randoms) * last_elem == s_last(r_last)
 
 The rounds' Fiat-Shamir runs on the device.  The host transcript's
 midstate hops to the device before round 0; each round is the partial
-sums, ONE launch of the round-scalars kernel (absorb the pending root and
-the round polynomial, draw r, write r and r/2 where the folds read them),
-the table fold and the codeword fold; no round copies anything to or from
-the host.  A call to ``run_rounds`` ends in ONE device->host copy (the
-round polynomials, the roots, the last fold's elements and the device's
-digest), after which the host replays the same absorbs into its own
-transcript and checks the digest.  Rounds run on the device down to the
-last element: there is no host tail.
+sums (the identity composition's program, ONE ``sumcheck_sums`` launch on a
+card: ``composition.round_sums``), ONE launch of the round-scalars kernel
+(absorb the pending root and the round polynomial, draw r, write r and r/2
+where the folds read them), the table fold and the codeword fold; no round
+copies anything to or from the host.  A call to ``run_rounds`` ends in ONE
+device->host copy (the round polynomials, the roots, the last fold's
+elements and the device's digest), after which the host replays the same
+absorbs into its own transcript and checks the digest.  Rounds run on the
+device down to the last element: there is no host tail.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from . import composition as cmp
 from . import device_transcript as dtr
 from . import stats
 from .checkpoint import barrier, is_writer, load_pcs_state, normalize_ckpt_path, save_pcs_state
@@ -45,9 +47,13 @@ from .field.scalar import Fp
 from .fri import FriError, FriProof, FriProverData, draw_query_indices, encode_mle_for_fri
 from .mle import eq_scalar
 from .sha256 import digest_to_bytes
-from .sumcheck import SumcheckPoly, SumcheckTables
+from .sumcheck import SumcheckPoly, SumcheckTables, identity_composition
 from .transcript import Transcript
 from .utils import span
+
+# the PCS's composition, x -> x[0], as a program: no instructions, column 0
+# the result; traced once a process
+IDENTITY = cmp.trace(identity_composition, 1, None)
 
 
 @dataclass
@@ -122,9 +128,12 @@ class DeviceRounds:
     ``state``: the transcript (``device_transcript``), hopped from the host
     transcript at construction.  ``scal``: (3, 4) - the running sum, then
     this round's r and r/2, which the folds read.  ``coeffs``: (n, 2, 4), the
-    nonzero coefficients of round k's polynomial in slot k.  ``digest``: the
-    digest of the device state after its latest absorb.  The copies to the
-    device are made here, before the rounds, and do not make the host wait.
+    nonzero coefficients of round k's polynomial in slot k.  ``sums``: (n, 2,
+    4) int64, zeroed once here, round k's unreduced limb sums of s(1), s(2)
+    in slot k (the sums kernel adds into it).  ``digest``: the digest of the
+    device state after its latest absorb.  The copies to the device are made
+    here, before the rounds, and do not make the host wait; a resumed or a
+    batched session keeps its round indices into the slots.
     """
 
     def __init__(self, transcript: Transcript, n_rounds: int, previous_sum: Fp, device):
@@ -132,6 +141,8 @@ class DeviceRounds:
         self.state = dtr.state_from_host(transcript, device)
         self.scal = limbs.pack_ints([Fp(previous_sum), 0, 0], device=device)
         self.coeffs = torch.empty((n_rounds, 2, 4), dtype=torch.int32, device=device)
+        self.sums = torch.zeros((n_rounds, 2, 4), dtype=torch.int64, device=device)
+        IDENTITY.on(device)  # its one copy to the device, made before the rounds
         self.digest = torch.empty(8, dtype=torch.int32, device=device)
         self.roots_absorbed = 0  # fold trees whose root the device state holds
         self._rounds = []  # (k, tree whose root round k absorbed, or None), not replayed yet
@@ -150,14 +161,16 @@ class DeviceRounds:
         return self.scal[2]
 
     def round(self, tables: SumcheckTables, fri_data: FriProverData, fold_step, k: int, last: bool) -> None:
-        """Round k, all on the device: the round polynomial's sums, its
+        """Round k, all on the device: the round polynomial's sums (the
+        tables' sums of the identity program into slot k of ``sums``), its
         Fiat-Shamir (absorbing the newest tree's root first if the state has
         not had it), the table fold, the codeword fold ``fold_step(k, rh)``;
         after the last fold the last element's absorb."""
         with span("round"):
             trees = fri_data.trees
             tree = trees[self.roots_absorbed] if len(trees) > self.roots_absorbed else None
-            dtr.round_scalars(self.state, self.scal, self.digest, sums=tables.partial_sums(),
+            sums = tables.program_sums(IDENTITY, None, 2, self.sums[k])
+            dtr.round_scalars(self.state, self.scal, self.digest, sums=sums,
                               root=tree.root_words if tree is not None else None, coeffs=self.coeffs[k])
             self.roots_absorbed += tree is not None
             self._rounds.append((k, tree))

@@ -13,22 +13,23 @@ for the PCS) and the delta (eq-weight) table in the LAST row, so one
 multiply folds everything.  A round evaluates the composition at the
 linear extensions X = 1..d of the table halves, weights it by the extended
 delta row and sums the limbs unreduced; the round's Fiat-Shamir kernel
-reduces the sums:
+reduces the sums.  The composition is traced once to a program
+(``composition.trace``), and every table's sums are
+:meth:`SumcheckTables.program_sums` (``composition.round_sums``, which picks
+the route: one ``sumcheck_sums`` launch on a card where the program fits a
+block):
 
-* the PCS (``pcs.DeviceRounds``) calls :meth:`SumcheckTables.partial_sums`
-  (the identity composition) and ``device_transcript.round_scalars``;
+* the PCS (``pcs.DeviceRounds``) runs the identity composition's program at
+  degree 2 and calls ``device_transcript.round_scalars``;
 * the standalone sumcheck of the constraint system
   (:meth:`SumcheckTables.compute_all_rounds`, :class:`DeviceSumcheckRounds`)
-  evaluates any composition and calls
+  runs any composition's and calls
   ``device_transcript.sumcheck_round_scalars``, which interpolates through
-  V^-1.  The composition is traced once to a program
-  (``composition.trace``), and a round is three launches on one card: the
-  program's sums (``composition.round_sums``, which picks the kernel or
-  the wider programs' route), the round's scalars, then the fold.  Its
-  rounds copy nothing to the host; one copy after the last round brings the
-  coefficients, the randoms, the folded columns (each column's MLE at the
-  randoms) and the device's digest back, and the host replays the absorbs
-  and challenges and checks them.
+  V^-1.  A round is three launches on one card: the program's sums, the
+  round's scalars, then the fold.  Its rounds copy nothing to the host; one
+  copy after the last round brings the coefficients, the randoms, the folded
+  columns (each column's MLE at the randoms) and the device's digest back,
+  and the host replays the absorbs and challenges and checks them.
 
 Every table folds in one ``sumcheck_fold`` launch (``composition.round_fold``).
 """
@@ -105,21 +106,6 @@ def _pack_tables_kernel(cols: torch.Tensor, subs) -> torch.Tensor:
     return data
 
 
-def _partial_sums_kernel(data: torch.Tensor) -> torch.Tensor:
-    """The PCS round's s(1), s(2) as UNREDUCED int64 limb sums (2, 4): s(X) =
-    sum_i delta_X[i] * p_X[i] over the linear extensions X = 1, 2 of the
-    packed (2, h, 4) table's halves (the identity composition); the round's
-    Fiat-Shamir kernel reduces them."""
-    w, off = data.shape[0] - 1, data.shape[1] // 2
-    if off >= 1 << 31:
-        raise ValueError("a round's unreduced limb sums stay exact for fewer than 2^31 rows")
-    lo, hi = data[:, :off], data[:, off:]
-    sums = [ops.sum_limbs(ops.mul(hi[w], hi[0]), dim=0)]
-    two = ops.add(hi, ops.sub(hi, lo))  # ext(2) = hi + (hi - lo)
-    sums.append(ops.sum_limbs(ops.mul(two[w], two[0]), dim=0))
-    return torch.stack(sums)
-
-
 @lru_cache(maxsize=16)
 def vandermonde_inv(n: int, device: torch.device) -> torch.Tensor:
     """V^-1 over the points 0..n-1 as an (n, n, 4) field tensor on
@@ -180,18 +166,13 @@ class SumcheckTables:
         data = _pack_tables_kernel(trace_columns, delta_subtables(row_challenges, trace_columns.device))
         return SumcheckTables(data, height, debug_checks)
 
-    def partial_sums(self) -> torch.Tensor:
-        """The PCS round's (2, 4) int64 device tensor: the unreduced limb
-        sums of s(1), s(2)."""
-        return _partial_sums_kernel(self.data)
-
     def program_sums(self, program: cmp.Program, aux: Optional[torch.Tensor], degree: int,
                      out: torch.Tensor) -> torch.Tensor:
-        """A constraint round's sums of s(1)..s(degree): ``program`` (the
-        composition's, ``composition.trace``) run over the table, its limb
-        sums added into ``out``, a zeroed (degree, 4) int64 row.  Callers
-        read the returned tensor only: here it is ``out``, but a rank's
-        tables return the sums over the ranks, a new tensor."""
+        """A round's sums of s(1)..s(degree): ``program`` (the composition's,
+        ``composition.trace``; the PCS's is ``pcs.IDENTITY``) run over the
+        table, its limb sums added into ``out``, a zeroed (degree, 4) int64
+        row.  Callers read the returned tensor only: here it is ``out``, but
+        a rank's tables return the sums over the ranks, a new tensor."""
         cmp.round_sums(self.data, program, aux, degree, out)
         return out
 

@@ -22,7 +22,7 @@ from multilinear_tpu.field.scalar import Fp as JFp
 from multilinear_tpu.mle import delta_subtables as j_delta_subtables
 from multilinear_tpu.transcript import Transcript as JTranscript
 
-from multilinear_tpu_torch import device_transcript, fri, ntt, sha256, sumcheck
+from multilinear_tpu_torch import device_transcript, fri, ntt, pcs, sha256, sumcheck
 from multilinear_tpu_torch.config import NUM_QUERIES
 from multilinear_tpu_torch.field import cuda_ops, limbs, ops
 from multilinear_tpu_torch.field.scalar import P, Fp
@@ -143,8 +143,11 @@ def test_fri_debug_checks_catch_a_non_canonical_codeword():
         fri.FriProverData.init(bad, Transcript(), debug_checks=True)
 
 
-@pytest.mark.parametrize("n_vars", [2, 9])
+@pytest.mark.parametrize("n_vars", [1, 2, 9])
 def test_pcs_tables_partial_sums_and_fold_match_jax(n_vars):
+    """The PCS round's sums - the identity program run by ``program_sums``
+    into a zeroed (2, 4) row, as ``pcs.DeviceRounds`` runs them - and the
+    table fold, against the JAX package's."""
     h = 1 << n_vars
     j = jlimbs.pack_ints(_ints(h, 50 + n_vars))
     evals = limbs.from_jax_limbs(j)
@@ -153,7 +156,8 @@ def test_pcs_tables_partial_sums_and_fold_match_jax(n_vars):
     jdata = jsc._pack_tables_kernel(jnp.asarray(j), j_delta_subtables([JFp(p) for p in pts]))
     assert _same(tables.data, jdata)  # (2, h, 4) vs (8, 2, h)
     jsums = jsc._partial_sums_kernel(jdata, jnp.zeros((0, 8), jnp.uint32), 2, jsc.identity_composition)
-    raw = tables.partial_sums()  # unreduced int64 limb sums, reduced by the caller
+    row = torch.zeros((2, 4), dtype=torch.int64)
+    raw = tables.program_sums(pcs.IDENTITY, None, 2, row)  # unreduced int64 limb sums, reduced by the caller
     assert raw.shape == (2, 4) and raw.dtype == torch.int64
     assert _same(ops.reduce_limb_sums(raw), jsums)
     # s(1) is the sum over the upper half of the table

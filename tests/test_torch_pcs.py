@@ -22,22 +22,24 @@ from multilinear_tpu.serialize import pcs_proof_from_bytes as j_from_bytes
 from multilinear_tpu.serialize import pcs_proof_to_bytes as j_to_bytes
 from multilinear_tpu.transcript import Transcript as JTranscript
 
+from multilinear_tpu_torch import composition as cmp
 from multilinear_tpu_torch import stats
+from multilinear_tpu_torch.batched_pcs import BatchedPCSClaim, BatchedPCSProof
 from multilinear_tpu_torch.config import ProverConfig
-from multilinear_tpu_torch.field import limbs
+from multilinear_tpu_torch.field import limbs, ops
 from multilinear_tpu_torch.field.scalar import Fp, P
 from multilinear_tpu_torch.fri import FriError
 from multilinear_tpu_torch.mle import evaluate_evals_host
 from multilinear_tpu_torch.pcs import PCSProof, PCSProverSession
-from multilinear_tpu_torch.serialize import pcs_proof_from_bytes, pcs_proof_to_bytes
-from multilinear_tpu_torch.testdata import pcs_golden_inputs
+from multilinear_tpu_torch.serialize import batched_pcs_proof_to_bytes, pcs_proof_from_bytes, pcs_proof_to_bytes
+from multilinear_tpu_torch.testdata import batched_pcs_golden_inputs, pcs_golden_inputs
 from multilinear_tpu_torch.transcript import Transcript
 
 CPU = ProverConfig(device="cpu", debug_checks=True)
-GOLDEN = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "multilinear_tpu_torch", "testdata", "pcs_golden.json",
-)
+TESTDATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "multilinear_tpu_torch",
+                        "testdata")
+GOLDEN = os.path.join(TESTDATA, "pcs_golden.json")
+BATCHED_GOLDEN = os.path.join(TESTDATA, "batched_pcs_golden.json")
 
 
 def _case(n_vars: int, seed: int):
@@ -232,3 +234,77 @@ def test_golden_digest_matches_both_packages():
     assert len(port_bytes) == golden["proof_bytes"]
     assert hashlib.sha256(jax_bytes).hexdigest() == golden["sha256"]
     assert hashlib.sha256(port_bytes).hexdigest() == golden["sha256"]
+
+
+def _golden(path: str) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def _golden_pcs_session():
+    """A session of the golden PCS fixture (``GOLDEN``) on the CPU."""
+    golden = _golden(GOLDEN)
+    vals, point = pcs_golden_inputs(golden["log_n"], golden["seed"])
+    return PCSProverSession([Fp(v) for v in point], Fp(int(golden["output"])), limbs.pack_ints(vals),
+                            Transcript(), CPU)
+
+
+def _prove_golden(kind: str, tmp_path):
+    """The golden fixture of ``kind`` proved on the CPU: "pcs" in one shot,
+    "batched" (the batched fixture), "resumed" (the PCS saved after 4
+    rounds, dropped, resumed from the file).  Returns (proof bytes, rounds,
+    the fixture)."""
+    if kind == "batched":
+        golden = _golden(BATCHED_GOLDEN)
+        B, log_n = golden["n_polys"], golden["log_n"]
+        polys, point = batched_pcs_golden_inputs(B, log_n, golden["seed"])
+        claim = BatchedPCSClaim([Fp(v) for v in point], [Fp(int(o)) for o in golden["outputs"]])
+        proof = BatchedPCSProof.prove(claim, limbs.pack_ints([v for p in polys for v in p], shape=(B, 1 << log_n)),
+                                      Transcript(), CPU)
+        return batched_pcs_proof_to_bytes(proof), log_n, golden
+    golden = _golden(GOLDEN)
+    session = _golden_pcs_session()
+    if kind == "resumed":
+        assert session.run_rounds(4) == 4
+        path = str(tmp_path / "pcs")
+        session.save(path)
+        session = PCSProverSession.resume(path, CPU)
+    session.run_rounds()
+    return pcs_proof_to_bytes(session.finish()), golden["log_n"], golden
+
+
+@pytest.mark.parametrize("kind", ["pcs", "batched", "resumed"])
+def test_every_pcs_round_takes_the_sums_kernel_route(kind, tmp_path, monkeypatch):
+    """A PCS prove, a batched PCS prove and a saved-then-resumed PCS session
+    run each round's sums as the identity program on the route of
+    ``composition.round_sums`` (here the kernel's plain version): one
+    ``sumcheck_rounds_fused`` a round, none on the loop over the field's
+    add, sub and mul, and the golden fixture's bytes."""
+    loops = []
+    sums_loop = cmp._sums_loop
+    monkeypatch.setattr(cmp, "_sums_loop", lambda *args: loops.append(args[-1]) or sums_loop(*args))
+    stats.reset()
+    blob, rounds, golden = _prove_golden(kind, tmp_path)
+    assert stats.counts().get("sumcheck_rounds_fused", 0) == rounds
+    assert loops == [cmp._PLAIN] * rounds
+    assert len(blob) == golden["proof_bytes"]
+    assert hashlib.sha256(blob).hexdigest() == golden["sha256"]
+
+
+def test_a_pcs_round_wider_than_a_block_proves_the_same_bytes(monkeypatch):
+    """With ``composition.max_slots`` patched to 0 the identity program is
+    wider than a block, and every round's sums take the loop over the
+    field's add, sub and mul: no round on the kernel route, the golden
+    fixture's bytes."""
+    loops = []
+    sums_loop = cmp._sums_loop
+    monkeypatch.setattr(cmp, "_sums_loop", lambda *args: loops.append(args[-1]) or sums_loop(*args))
+    monkeypatch.setattr(cmp, "max_slots", lambda device: 0)
+    golden = _golden(GOLDEN)
+    stats.reset()
+    session = _golden_pcs_session()
+    session.run_rounds()
+    blob = pcs_proof_to_bytes(session.finish())
+    assert stats.counts().get("sumcheck_rounds_fused", 0) == 0
+    assert loops == [(ops.add, ops.sub, ops.mul)] * golden["log_n"]
+    assert hashlib.sha256(blob).hexdigest() == golden["sha256"]
